@@ -1,0 +1,577 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (wgatools_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py [--seed N] [--profile DIR]
+
+Builds the port's CUDA kernels from wgatools_tpu_torch/csrc/ and then:
+
+1. gates each kernel bit for bit against its plain PyTorch version on the
+   card, at the shapes the main path gives it and at edge shapes, and
+   times both;
+2. runs `stat` and `stat -e` through the port's command line on a ~100 Mbp
+   MAF made from the seed, and checks the bytes against the host engine;
+3. runs `paf2chain` the same way on a 100 000-record PAF;
+4. runs the fused flagship kernel at bench.py's shape and checks its
+   anchors, expanded per op on the host, against the plain full liftover
+   scan of the same ops.
+
+Launch counts are reset before phase 2 and read after phase 4: every
+kernel of the path must have launched there.  With --profile, `stat` and
+`paf2chain` then run once more under torch.profiler and cProfile, with a
+summary printed and the tables written to DIR/profile.txt.  The
+reference for the tool bytes is the TPU package's jax-free host engine,
+which shares the output formatting code with the port: the byte
+comparison checks the per-record counters and the chain-line arithmetic,
+not the formatting.
+
+The last three lines are a JSON object listing each kernel (launches, max
+error, times), the card's name and power limit, and the JSON result line.
+Any failed check raises, so the exit code is not 0; without CUDA the
+script exits 2 and prints no result.  Needs one card; work files go to
+build/chip_smoke/ and are removed at the end.
+"""
+
+import argparse
+import importlib.util
+import io
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# main-path shapes: bench.py's column batch (B rows x L columns, L/32 ops per
+# row for the fused kernel), a paf2chain batch of ~2^20 op slots, the
+# stat MAF (~102 Mbp) and the paf2chain PAF (~4M ops, 4 device batches)
+BENCH_B, BENCH_L = 128, 1 << 20
+SCAN_ROWS, SCAN_N = 8192, 128
+MAF_RECORDS, MAF_COLUMNS = 512, 200_000
+PAF_RECORDS, PAF_RUNS = 100_000, 40
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def time_ms(fn, reps=20, rounds=5):
+    """Device time of one fn() call in ms: the median over `rounds` of CUDA
+    event windows around `reps` back-to-back calls, divided by `reps`.
+    The card spins (torch.cuda._sleep) while the host queues the calls, so
+    a window holds the calls' device time and not the host's launch cost."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)  # ~50 ms at H100 clocks
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / reps)
+    return statistics.median(per_call)
+
+
+class Gates:
+    """Bit-for-bit comparisons of kernels with their plain versions."""
+
+    def __init__(self):
+        self.max_err = {}
+
+    def check(self, name, label, got, want):
+        import torch
+
+        err = 0
+        for g, w in zip(got, want):
+            if g.shape != w.shape:
+                raise AssertionError(
+                    f"{name} [{label}]: shape {tuple(g.shape)} != {tuple(w.shape)}"
+                )
+            if g.numel():
+                diff = (g.to(torch.int64) - w.to(torch.int64)).abs().max()
+                err = max(err, int(diff))
+        self.max_err[name] = max(self.max_err.get(name, 0), err)
+        if err:
+            raise AssertionError(f"{name} [{label}]: max |kernel - plain| = {err}")
+        log(f"gate {name} [{label}]: ok")
+
+
+def load_corpus_module():
+    spec = importlib.util.spec_from_file_location(
+        "make_corpus", os.path.join(REPO, "scripts", "make_corpus.py")
+    )
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def random_pairs(rng, lengths, all_gap_rows=()):
+    alphabet = np.frombuffer(b"ACGTNacgtn-RY", dtype=np.uint8)
+    pairs = []
+    for k, n in enumerate(lengths):
+        if k in all_gap_rows:
+            pairs.append((b"-" * n, b"-" * n))
+            continue
+        t = alphabet[rng.integers(0, len(alphabet), n)]
+        q = t.copy()
+        flip = rng.random(n) < 0.3
+        q[flip] = alphabet[rng.integers(0, len(alphabet), int(flip.sum()))]
+        pairs.append((t.tobytes(), q.tobytes()))
+    return pairs
+
+
+def phase_kernels(rng, device, gates, times):
+    """Phase 1: kernel gates at main-path and edge shapes, with times."""
+    import torch
+
+    from wgatools_tpu_torch.ops.classify import (
+        classify_stat_cat,
+        classify_stat_cat_ref,
+        pack_cat_nibbles,
+        pack_pairs,
+    )
+    from wgatools_tpu_torch.ops.fused import (
+        classify_liftover_fused_adv16,
+        classify_liftover_fused_adv16_ref,
+    )
+    from wgatools_tpu_torch.ops.liftover import (
+        chain_scan,
+        liftover_scan,
+        liftover_scan_ref,
+        pack_ops_sums,
+    )
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    # kernel A at bench.py's batch
+    B, L = BENCH_B, BENCH_L
+    alphabet = np.frombuffer(b"ACGT-", dtype=np.uint8)
+    t0 = alphabet[rng.integers(0, 5, size=(B, L))]
+    q0 = alphabet[rng.integers(0, 5, size=(B, L))]
+    cw_np = pack_cat_nibbles(t0, q0)
+    del t0, q0
+    lens_np = (L - rng.integers(0, 4096, B)).astype(np.int32)
+    lens_np[0] = L
+    cw, lens = up(cw_np), up(lens_np)
+    for caller in (False, True):
+        gates.check(
+            "classify_cat", f"B={B} L={L} caller={caller}",
+            [classify_stat_cat(cw, lens, caller)],
+            [classify_stat_cat_ref(cw, lens, caller)],
+        )
+    times["classify_cat"] = (
+        time_ms(lambda: classify_stat_cat(cw, lens)),
+        time_ms(lambda: classify_stat_cat_ref(cw, lens), reps=5),
+    )
+
+    # kernel A edge shapes: odd B, B=1, L not a multiple of 1024, rows of
+    # length 0, an all gap/gap row, IUPAC and lowercase bytes
+    edge_planes = []
+    for lengths, gg_rows in (
+        ([0, 1, 7, 8, 9, 777, 999, 1000, 1000], (8,)),
+        ([17], ()),
+        ([40_000, 0, 16_385, 16_384, 3], (3,)),
+    ):
+        t, q, ln = pack_pairs(random_pairs(rng, lengths, gg_rows), align=8)
+        edge_planes.append((up(pack_cat_nibbles(t, q)), up(ln)))
+        for caller in (False, True):
+            gates.check(
+                "classify_cat", f"edge B={len(lengths)} L={t.shape[1]} "
+                f"caller={caller}",
+                [classify_stat_cat(*edge_planes[-1], caller)],
+                [classify_stat_cat_ref(*edge_planes[-1], caller)],
+            )
+
+    # kernel B at a paf2chain batch: records x 128 op slots
+    R, N = SCAN_ROWS, SCAN_N
+    op_chars = np.frombuffer(b"M=XIDSNH", dtype=np.uint8)
+    ops_np = op_chars[rng.integers(0, 8, size=(R, N))]
+    ops_np[np.arange(N)[None, :] >= rng.integers(1, N + 1, R)[:, None]] = 0
+    olens_np = rng.integers(0, 2000, size=(R, N)).astype(np.int32)
+    olens_np[ops_np == 0] = 0
+    ops, olens = up(ops_np), up(olens_np)
+    for name, fn in (("liftover", liftover_scan), ("chain", chain_scan)):
+        gates.check(
+            "liftover_scan", f"{R}x{N} mode={name}",
+            fn(ops, olens), liftover_scan_ref(ops, olens, name),
+        )
+    times["liftover_scan"] = (
+        time_ms(lambda: chain_scan(ops, olens)),
+        time_ms(lambda: liftover_scan_ref(ops, olens, "chain")),
+    )
+    # kernel B edge shapes: B=9 with N not a tile multiple and lengths
+    # past 2^16, B=1, an all-padding row
+    for rows, n in ((9, 1000), (1, 3), (3, 129)):
+        e_ops = op_chars[rng.integers(0, 8, size=(rows, n))]
+        e_ops[-1, :] = 0
+        e_lens = rng.integers(0, 200_000, size=(rows, n)).astype(np.int32)
+        for name, fn in (("liftover", liftover_scan), ("chain", chain_scan)):
+            gates.check(
+                "liftover_scan", f"edge {rows}x{n} mode={name}",
+                fn(up(e_ops), up(e_lens)),
+                liftover_scan_ref(up(e_ops), up(e_lens), name),
+            )
+
+    # kernel C at bench.py's shape: the same plane, N_OPS = L/32 ops per row
+    n_ops = L // 32
+    bench_ops = np.frombuffer(b"M=XID", dtype=np.uint8)[
+        rng.integers(0, 5, size=(B, n_ops))
+    ]
+    bench_lens = np.full((B, n_ops), 32, np.int32)
+    st, sq = (up(a) for a in pack_ops_sums(bench_ops, bench_lens, group=8))
+    for caller in (False, True):
+        gates.check(
+            "fused_adv16", f"B={B} L={L} NG={st.shape[1]} caller={caller}",
+            classify_liftover_fused_adv16(cw, lens, st, sq, device, caller),
+            classify_liftover_fused_adv16_ref(cw, lens, st, sq, caller),
+        )
+    times["fused_adv16"] = (
+        time_ms(lambda: classify_liftover_fused_adv16(cw, lens, st, sq, device)),
+        time_ms(lambda: classify_liftover_fused_adv16_ref(cw, lens, st, sq),
+                reps=5),
+    )
+    # kernel C edge shapes: B2 != B both ways, B=1
+    for (e_cw, e_len), b2, ng in zip(edge_planes, (5, 13, 5), (3, 700, 1)):
+        e_st = up(rng.integers(0, 1 << 16, size=(b2, ng)).astype(np.int32))
+        e_sq = up(rng.integers(0, 1 << 16, size=(b2, ng)).astype(np.int32))
+        gates.check(
+            "fused_adv16", f"edge B={e_cw.shape[0]} B2={b2} NG={ng}",
+            classify_liftover_fused_adv16(e_cw, e_len, e_st, e_sq, device),
+            classify_liftover_fused_adv16_ref(e_cw, e_len, e_st, e_sq),
+        )
+
+    # random shapes: arbitrary nibbles (codes the LUT never makes), lengths
+    # below 0 and past the row, arbitrary op bytes
+    for k in range(8):
+        b, lw = int(rng.integers(1, 300)), int(rng.integers(1, 5000))
+        f_cw = up(rng.integers(0, 1 << 32, (b, lw), dtype=np.uint64)
+                  .astype(np.uint32).view(np.int32))
+        f_len = up(rng.integers(-8, 8 * lw + 16, b).astype(np.int32))
+        b2, ng = int(rng.integers(1, 300)), int(rng.integers(1, 3000))
+        f_st = up(rng.integers(0, 1 << 16, (b2, ng)).astype(np.int32))
+        f_sq = up(rng.integers(0, 1 << 16, (b2, ng)).astype(np.int32))
+        for caller in (False, True):
+            label = f"random {k} B={b} LW={lw} caller={caller}"
+            gates.check("classify_cat", label,
+                        [classify_stat_cat(f_cw, f_len, caller)],
+                        [classify_stat_cat_ref(f_cw, f_len, caller)])
+            gates.check(
+                "fused_adv16", f"{label} B2={b2} NG={ng}",
+                classify_liftover_fused_adv16(f_cw, f_len, f_st, f_sq, device,
+                                              caller),
+                classify_liftover_fused_adv16_ref(f_cw, f_len, f_st, f_sq, caller),
+            )
+        rows, n = int(rng.integers(1, 64)), int(rng.integers(1, 3000))
+        f_ops = up(rng.integers(0, 256, (rows, n)).astype(np.uint8))
+        f_lens = up(rng.integers(0, 1 << 19, (rows, n)).astype(np.int32))
+        for name, fn in (("liftover", liftover_scan), ("chain", chain_scan)):
+            gates.check("liftover_scan", f"random {k} {rows}x{n} mode={name}",
+                        fn(f_ops, f_lens), liftover_scan_ref(f_ops, f_lens, name))
+    return {"cw": cw, "lens": lens, "ops": bench_ops, "op_lens": bench_lens}
+
+
+def write_maf(path, corpus, rng, n_records, n_cols):
+    """make_corpus.make_maf's alignments, with every 5th query on '-'."""
+    with open(path, "w") as f:
+        f.write("##maf version=1.6\n")
+        t_off = 1000
+        for i in range(n_records):
+            vals, lens = corpus.run_table(rng, max(3, n_cols // 18))
+            scale = n_cols / max(1, int(lens.sum()))
+            lens = np.maximum(1, (lens * scale).astype(np.int64))
+            t, q = corpus.realize(rng, vals, lens)
+            t_len = int((t != corpus.GAP).sum())
+            q_len = int((q != corpus.GAP).sum())
+            strand = "-" if i % 5 == 0 else "+"
+            f.write(
+                f"a score=0\ns\tref.chr1\t{t_off}\t{t_len}\t+\t1000000000\t"
+                + t.tobytes().decode("ascii")
+                + f"\ns\tq{i % 4}.chr1\t{t_off}\t{q_len}\t{strand}\t"
+                "1000000000\t" + q.tobytes().decode("ascii") + "\n\n"
+            )
+            t_off += t_len + 10
+
+
+def run_cli(argv):
+    from wgatools_tpu_torch.cli import main
+
+    t0 = time.perf_counter()
+    rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"wgatools_tpu_torch {' '.join(argv)} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def phase_stat(work, corpus, rng, launches):
+    """Phase 2: `stat` and `stat -e` on a ~100 Mbp MAF against the host
+    engine's bytes."""
+    from wgatools_tpu.io.compression import open_input
+    from wgatools_tpu.io.maf import MafReader
+    from wgatools_tpu.tools.stat import stat_maf as host_stat_maf
+
+    maf = os.path.join(work, "smoke.maf")
+    t0 = time.perf_counter()
+    write_maf(maf, corpus, rng, MAF_RECORDS, MAF_COLUMNS)
+    log(f"stat: wrote {os.path.getsize(maf)} B of MAF in "
+        f"{time.perf_counter() - t0:.3f} s")
+    for each in (False, True):
+        out = os.path.join(work, f"stat{'_each' if each else ''}.tsv")
+        secs = run_cli(["stat", maf, "-o", out, "-r"] + (["-e"] if each else []))
+        t0 = time.perf_counter()
+        want = io.BytesIO()
+        host_stat_maf(MafReader(open_input(maf)), want, each, device=False)
+        host_secs = time.perf_counter() - t0
+        with open(out, "rb") as f:
+            got = f.read()
+        if got != want.getvalue():
+            raise AssertionError(f"stat each={each}: bytes differ from the host engine")
+        log(f"stat each={each}: ok, {len(got)} B identical; port "
+            f"{secs:.3f} s, host engine {host_secs:.3f} s")
+    if launches["classify_cat"] == 0:
+        raise AssertionError("stat did not launch kernel classify_cat")
+
+
+def phase_paf2chain(work, corpus, rng, launches):
+    """Phase 3: `paf2chain` on 100 000 records x 40 runs against the host
+    engine's bytes."""
+    from wgatools_tpu.io.compression import open_input
+    from wgatools_tpu.io.paf import PafReader
+    from wgatools_tpu.tools.convert import paf2chain as host_paf2chain
+
+    paf = os.path.join(work, "smoke.paf")
+    t0 = time.perf_counter()
+    corpus.make_paf(paf, rng, PAF_RECORDS, PAF_RUNS)
+    log(f"paf2chain: wrote {os.path.getsize(paf)} B of PAF in "
+        f"{time.perf_counter() - t0:.3f} s")
+    out = os.path.join(work, "smoke.chain")
+    secs = run_cli(["paf2chain", paf, "-o", out, "-r"])
+    t0 = time.perf_counter()
+    want = io.BytesIO()
+    host_paf2chain(PafReader(open_input(paf)), want, device=False)
+    host_secs = time.perf_counter() - t0
+    with open(out, "rb") as f:
+        got = f.read()
+    if got != want.getvalue():
+        raise AssertionError("paf2chain: bytes differ from the host engine")
+    log(f"paf2chain: ok, {len(got)} B identical; port {secs:.3f} s, "
+        f"host engine {host_secs:.3f} s")
+    if launches["liftover_scan"] == 0:
+        raise AssertionError("paf2chain did not launch kernel liftover_scan")
+
+
+def phase_fused(device, bench, launches):
+    """Phase 4: the fused flagship at bench.py's shape; anchors expanded
+    per op must equal the plain full-table liftover scan."""
+    import torch
+
+    from wgatools_tpu_torch.ops.classify import classify_stat_cat_ref
+    from wgatools_tpu_torch.ops.fused import classify_liftover_fused_adv16
+    from wgatools_tpu_torch.ops.liftover import (
+        adv16_odd_offsets,
+        expand_group_prefix,
+        interleave_halves,
+        liftover_scan_ref,
+        pack_ops_adv16,
+        pack_ops_sums,
+    )
+
+    ops, op_lens = bench["ops"], bench["op_lens"]
+    n_ops = ops.shape[1]
+    st, sq = pack_ops_sums(ops, op_lens, group=8)
+    wt, wq = pack_ops_adv16(ops, op_lens)
+    t0 = time.perf_counter()
+    stats, ta, qa = classify_liftover_fused_adv16(
+        bench["cw"], bench["lens"], st, sq, device
+    )
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if launches["fused_adv16"] == 0:
+        raise AssertionError("the fused path did not launch kernel fused_adv16")
+    want_stats = classify_stat_cat_ref(bench["cw"], bench["lens"])
+    if not torch.equal(stats, want_stats):
+        raise AssertionError("fused stats differ from the plain version")
+    want_t, want_q = (
+        x.cpu().numpy()
+        for x in liftover_scan_ref(
+            torch.from_numpy(ops).to(device), torch.from_numpy(op_lens).to(device)
+        )
+    )
+    for label, anchors, w, want in (("t", ta, wt, want_t), ("q", qa, wq, want_q)):
+        even = expand_group_prefix(anchors.cpu().numpy(), w, group=8)
+        got = interleave_halves(even, adv16_odd_offsets(even, w))[:, :n_ops]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"fused {label} offsets differ from the full scan")
+    log(f"fused: ok, stats + expanded t/q offsets of {ops.shape[0]}x{n_ops} "
+        f"ops equal the plain full scan ({secs:.3f} s host wall incl. upload)")
+
+
+def profile_tools(work, out_dir):
+    """--profile: `stat` and `paf2chain` once more on the phases' inputs,
+    timed plain, then under torch.profiler (device time by kernel and copy)
+    and under cProfile (host time by function).  Full tables go to
+    out_dir/profile.txt, a summary to stdout."""
+    import cProfile
+    import pstats
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    report_path = os.path.join(out_dir, "profile.txt")
+    with open(report_path, "w") as report:
+        for name, argv in (
+            ("stat", ["stat", os.path.join(work, "smoke.maf"),
+                      "-o", os.path.join(work, "prof.tsv"), "-r"]),
+            ("paf2chain", ["paf2chain", os.path.join(work, "smoke.paf"),
+                           "-o", os.path.join(work, "prof.chain"), "-r"]),
+        ):
+            plain = run_cli(argv)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                traced = run_cli(argv)
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            # kernels and copies only, as torch's own table totals them: a
+            # host op's self device time repeats that of what it launched
+            on_device = sorted(
+                (e for e in events if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation),
+                key=lambda e: -e.self_device_time_total,
+            )
+            busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+            log(f"profile {name}: wall {plain:.3f} s plain, {traced:.3f} s "
+                f"under torch.profiler; device busy {busy_ms:.3f} ms, idle "
+                f"{100 * (1 - busy_ms / 1e3 / plain):.2f}% of the plain wall")
+            for e in on_device:
+                log(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
+                    f"x{e.count:<4} {e.key[:70]}")
+            report.write(f"== {name}: torch.profiler, wall {traced:.3f} s\n")
+            report.write(events.table(sort_by="self_device_time_total",
+                                      row_limit=20))
+            cprof = cProfile.Profile()
+            t0 = time.perf_counter()
+            cprof.runcall(run_cli, argv)
+            host = time.perf_counter() - t0
+            table = io.StringIO()
+            stats = pstats.Stats(cprof, stream=table)
+            stats.sort_stats("tottime").print_stats(20)
+            report.write(f"\n== {name}: cProfile, wall {host:.3f} s\n")
+            report.write(table.getvalue())
+            log(f"profile {name}: wall {host:.3f} s under cProfile; top host "
+                f"functions by own time:")
+            # stats.stats: (file, line, function) -> (cc, ncalls, tottime, ...)
+            top = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:8]
+            for (path, line, func), (_, ncalls, own, *_) in top:
+                log(f"  host {own:8.3f} s x{ncalls:<7} "
+                    f"{os.path.basename(path)}:{line}({func})")
+    log(f"profile tables: {report_path}")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", metavar="DIR",
+                    help="after the checks, profile `stat` and `paf2chain` "
+                    "on the device and the host; tables go to DIR/profile.txt")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs on a CUDA GPU only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from wgatools_tpu_torch.kernels import _build
+
+    device = torch.device("cuda", 0)
+    os.environ["WGA_TORCH_DEVICE"] = "cuda"
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    lib_path = os.path.join(_build.BUILD_DIR, _build.LIB_NAME)
+    if os.path.exists(lib_path):
+        os.remove(lib_path)  # build from the checkout's sources, every run
+    _build.lib()
+    log(f"build: {time.perf_counter() - t0:.3f} s")
+    with open(os.path.join(_build.BUILD_DIR, "nvcc.log")) as f:
+        for line in f:
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log("  " + line.strip())
+
+    rng = np.random.default_rng(args.seed)
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    corpus = load_corpus_module()
+    gates = Gates()
+    times = {}
+    try:
+        t0 = time.perf_counter()
+        bench = phase_kernels(rng, device, gates, times)
+        log(f"phase kernels: ok in {time.perf_counter() - t0:.3f} s")
+
+        _build.reset_launches()
+        launches = _build.LAUNCHES
+        for name, phase in (
+            ("stat", lambda: phase_stat(work, corpus, rng, launches)),
+            ("paf2chain", lambda: phase_paf2chain(work, corpus, rng, launches)),
+            ("fused", lambda: phase_fused(device, bench, launches)),
+        ):
+            t0 = time.perf_counter()
+            phase()
+            log(f"phase {name}: ok in {time.perf_counter() - t0:.3f} s")
+        launched = dict(launches)
+        if args.profile:
+            profile_tools(work, os.path.abspath(args.profile))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"launches on the main path: {launched}")
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+
+    csrc = "wgatools_tpu_torch/csrc"
+    kernels = [
+        ("classify_cat", "classify_cat.cu", "wgatools_tpu/ops/classify.py:1097"),
+        ("liftover_scan", "liftover_scan.cu", "wgatools_tpu/ops/liftover.py:266"),
+        ("fused_adv16", "fused_adv16.cu", "wgatools_tpu/ops/fused.py:662"),
+    ]
+    print(json.dumps({"kernels": [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": f"{csrc}/{src}",
+            "replaces": replaces,
+            "launches": launched[name],
+            "max_abs_err": gates.max_err[name],
+            "ms": times[name][0],
+            "plain_ms": times[name][1],
+        }
+        for name, src, replaces in kernels
+    ]}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

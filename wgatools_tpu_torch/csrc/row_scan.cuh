@@ -1,0 +1,70 @@
+// Exclusive int32 scan of two streams along one row, by one thread block:
+// the device code shared by kernel B (liftover_scan.cu) and the op-row
+// blocks of kernel C (fused_adv16.cu).
+//
+// The block walks the row in tiles of blockDim.x elements and carries the
+// running totals in registers (the TPU kernels carried them in a scratch
+// across the sequential column grid).  Within a tile: an inclusive
+// warp-shuffle scan per warp, then the warp totals through shared memory.
+// Sums are uint32_t, so they wrap modulo 2^32 exactly like the int32 adds
+// of torch.cumsum(..., dtype=torch.int32); callers keep row totals below
+// 2^31.  Left for later: several elements per thread, a decoupled
+// look-back across blocks for rows that are long and few.
+#pragma once
+
+#include <cstdint>
+
+namespace wga {
+
+// adv(i, at, aq) gives the two advances of element i; out_t[i] and
+// out_q[i] receive the sums of the advances before it.  blockDim.x must
+// be a multiple of 32 and every thread of the block must call this.
+template <class Adv>
+__device__ __forceinline__ void block_exclusive_scan2(
+    const Adv& adv, long long n, int* __restrict__ out_t,
+    int* __restrict__ out_q) {
+  __shared__ uint32_t warp_t[32], warp_q[32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  uint32_t carry_t = 0, carry_q = 0;
+  for (long long base = 0; base < n; base += blockDim.x) {
+    const long long i = base + threadIdx.x;
+    uint32_t at = 0, aq = 0;
+    if (i < n) adv(i, at, aq);
+    uint32_t st = at, sq = aq;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const uint32_t yt = __shfl_up_sync(0xffffffffu, st, d);
+      const uint32_t yq = __shfl_up_sync(0xffffffffu, sq, d);
+      if (lane >= d) {
+        st += yt;
+        sq += yq;
+      }
+    }
+    if (lane == 31) {
+      warp_t[warp] = st;
+      warp_q[warp] = sq;
+    }
+    __syncthreads();
+    uint32_t pre_t = 0, pre_q = 0, tot_t = 0, tot_q = 0;
+    for (int w = 0; w < nwarps; ++w) {
+      const uint32_t a = warp_t[w], b = warp_q[w];
+      if (w < warp) {
+        pre_t += a;
+        pre_q += b;
+      }
+      tot_t += a;
+      tot_q += b;
+    }
+    if (i < n) {
+      out_t[i] = static_cast<int>(carry_t + pre_t + st - at);
+      out_q[i] = static_cast<int>(carry_q + pre_q + sq - aq);
+    }
+    carry_t += tot_t;
+    carry_q += tot_q;
+    __syncthreads();  // warp totals are rewritten by the next tile
+  }
+}
+
+}  // namespace wga
