@@ -13,22 +13,28 @@ Builds the port's CUDA kernels from wgatools_tpu_torch/csrc/ and then:
 3. runs `paf2chain` the same way on a 100 000-record PAF;
 4. runs the fused flagship kernel at bench.py's shape and checks its
    anchors, expanded per op on the host, against the plain full liftover
-   scan of the same ops.
+   scan of the same ops;
+5. runs `maf2paf` and `maf2chain` on the stat MAF (two 64 Mi-column
+   category-plane batches) against the host engine's bytes;
+6. runs `call -s` on a ~40 Mbp MAF of four ~10 Mbp records whose widths
+   are not multiples of 8, at the default chunk size (chunks grouped into
+   one category-plane batch per record) and with `-c 16000000` (one [1, n]
+   byte-plane batch per record), against the host engine's bytes.
 
-Launch counts are reset before phase 2 and read after phase 4: every
-kernel of the path must have launched there.  With --profile, `stat` and
-`paf2chain` then run once more under torch.profiler and cProfile, with a
-summary printed and the tables written to DIR/profile.txt.  The
-reference for the tool bytes is the TPU package's jax-free host engine,
-which shares the output formatting code with the port: the byte
-comparison checks the per-record counters and the chain-line arithmetic,
-not the formatting.
+Launch counts are reset before each tool phase and read after it: every
+kernel of that phase's path must have launched there.  With --profile,
+`stat`, `paf2chain`, `maf2paf` and both `call` runs then run once more
+under torch.profiler and cProfile, with a summary printed and the tables
+written to DIR/profile.txt.  The reference for the tool bytes is the TPU
+package's jax-free host engine, which shares the output formatting code
+with the port: the byte comparison checks the per-record counters, run
+tables and the chain-line arithmetic, not the formatting.
 
-The last three lines are a JSON object listing each kernel (launches, max
-error, times), the card's name and power limit, and the JSON result line.
-Any failed check raises, so the exit code is not 0; without CUDA the
-script exits 2 and prints no result.  Needs one card; work files go to
-build/chip_smoke/ and are removed at the end.
+The last three lines are a JSON object listing each kernel (launches on
+the tool phases, max error, times), the card's name and power limit, and
+the JSON result line.  Any failed check raises, so the exit code is not 0;
+without CUDA the script exits 2 and prints no result.  Needs one card;
+work files go to build/chip_smoke/ and are removed at the end.
 """
 
 import argparse
@@ -48,11 +54,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # main-path shapes: bench.py's column batch (B rows x L columns, L/32 ops per
 # row for the fused kernel), a paf2chain batch of ~2^20 op slots, the
-# stat MAF (~102 Mbp) and the paf2chain PAF (~4M ops, 4 device batches)
+# stat MAF (~102 Mbp) and the paf2chain PAF (~4M ops, 4 device batches);
+# kernel D's call-route row and a 64 Mi-column batch of odd width; the
+# call MAF (~40 Mbp)
 BENCH_B, BENCH_L = 128, 1 << 20
 SCAN_ROWS, SCAN_N = 8192, 128
 MAF_RECORDS, MAF_COLUMNS = 512, 200_000
 PAF_RECORDS, PAF_RUNS = 100_000, 40
+CALL_ROW = 12_500_003
+BYTES_B, BYTES_L = 512, 131_073
+CALL_RECORDS, CALL_COLUMNS = 4, 10_000_003
 
 
 def log(msg):
@@ -278,7 +289,114 @@ def phase_kernels(rng, device, gates, times):
         for name, fn in (("liftover", liftover_scan), ("chain", chain_scan)):
             gates.check("liftover_scan", f"random {k} {rows}x{n} mode={name}",
                         fn(f_ops, f_lens), liftover_scan_ref(f_ops, f_lens, name))
+    gate_classify_bytes(rng, device, gates, times)
     return {"cw": cw, "lens": lens, "ops": bench_ops, "op_lens": bench_lens}
+
+
+def shifted(a, offset):
+    """A contiguous copy of tensor `a` whose data starts `offset` bytes past
+    an allocation's (aligned) start."""
+    import torch
+
+    buf = torch.empty(a.numel() + offset, dtype=torch.uint8, device=a.device)
+    out = buf[offset:].view(a.shape)
+    out.copy_(a)
+    return out
+
+
+def gate_classify_bytes(rng, device, gates, times):
+    """Kernel D at the call route's [1, n] row, at a 64 Mi-column batch of
+    odd width (both made on the card from the seed) and at edge and random
+    shapes, in both modes."""
+    import torch
+
+    from wgatools_tpu_torch.ops.classify import (
+        classify_stat_bytes,
+        classify_stat_bytes_ref,
+    )
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(0, 2**31)))
+    alphabet = torch.tensor(list(b"ACGTN-"), dtype=torch.uint8, device=device)
+
+    def planes_on_card(B, L):
+        t = alphabet[torch.randint(0, 6, (B, L), generator=gen, device=device)]
+        other = alphabet[torch.randint(0, 6, (B, L), generator=gen, device=device)]
+        keep = torch.rand((B, L), generator=gen, device=device) < 0.7
+        return t, torch.where(keep, t, other)
+
+    t, q = planes_on_card(1, CALL_ROW)
+    n = up(np.array([CALL_ROW], np.int32))
+    for caller in (False, True):
+        gates.check("classify_bytes", f"[1, {CALL_ROW}] caller={caller}",
+                    [classify_stat_bytes(t, q, n, caller)],
+                    [classify_stat_bytes_ref(t, q, n, caller)])
+    # the call route runs caller mode
+    times["classify_bytes"] = (
+        time_ms(lambda: classify_stat_bytes(t, q, n, True)),
+        time_ms(lambda: classify_stat_bytes_ref(t, q, n, True), reps=5),
+    )
+    log(f"classify_bytes [1, {CALL_ROW}] caller: kernel "
+        f"{times['classify_bytes'][0]:.5f} ms, plain "
+        f"{times['classify_bytes'][1]:.5f} ms")
+    del t, q
+
+    B, L = BYTES_B, BYTES_L
+    t, q = planes_on_card(B, L)
+    lens_np = (L - rng.integers(0, 4096, B)).astype(np.int32)
+    lens_np[0], lens_np[1] = L, 0
+    n = up(lens_np)
+    for caller in (False, True):
+        gates.check("classify_bytes", f"B={B} L={L} caller={caller}",
+                    [classify_stat_bytes(t, q, n, caller)],
+                    [classify_stat_bytes_ref(t, q, n, caller)])
+    batch_ms = (time_ms(lambda: classify_stat_bytes(t, q, n)),
+                time_ms(lambda: classify_stat_bytes_ref(t, q, n), reps=5))
+    log(f"classify_bytes B={B} L={L} ext: kernel {batch_ms[0]:.5f} ms, "
+        f"plain {batch_ms[1]:.5f} ms")
+    del t, q
+
+    # edge shapes: L % 4 in {1, 2, 3, 0}, lengths 0 and ending mid-word,
+    # all-gap rows, padding bytes that are not '-', rows past 16K columns,
+    # base addresses 0-3 bytes past alignment
+    padding = np.frombuffer(b"ACGTNacgtn", np.uint8)
+    for L in (1001, 1002, 1003, 1004, 16_387, 40_001):
+        lengths = [0, 1, 2, 3, 5, 13, L, L - 1, min(L, 999), L // 2]
+        pairs = random_pairs(rng, lengths, all_gap_rows=(4, 9))
+        t_np = padding[rng.integers(0, len(padding), (len(lengths), L))]
+        q_np = padding[rng.integers(0, len(padding), (len(lengths), L))]
+        for k, (tb, qb) in enumerate(pairs):
+            t_np[k, :len(tb)] = np.frombuffer(tb, np.uint8)
+            q_np[k, :len(qb)] = np.frombuffer(qb, np.uint8)
+        n = up(np.array(lengths, np.int32))
+        for offset in range(4):
+            t, q = shifted(up(t_np), offset), shifted(up(q_np), offset)
+            for caller in (False, True):
+                gates.check(
+                    "classify_bytes",
+                    f"edge B={len(lengths)} L={L} offset={offset} caller={caller}",
+                    [classify_stat_bytes(t, q, n, caller)],
+                    [classify_stat_bytes_ref(t, q, n, caller)],
+                )
+    # random shapes: arbitrary bytes ('-' frequent), lengths below 0 and
+    # past the row, any base offset
+    for k in range(8):
+        b, L = int(rng.integers(1, 300)), int(rng.integers(1, 5000))
+        raw = rng.integers(0, 256, (2, b, L)).astype(np.uint8)
+        raw[rng.random((2, b, L)) < 0.3] = ord("-")
+        same = rng.random((b, L)) < 0.4
+        raw[1][same] = raw[0][same]
+        offset = int(rng.integers(0, 4))
+        t, q = shifted(up(raw[0]), offset), shifted(up(raw[1]), offset)
+        n = up(rng.integers(-8, L + 16, b).astype(np.int32))
+        for caller in (False, True):
+            gates.check("classify_bytes",
+                        f"random {k} B={b} L={L} offset={offset} caller={caller}",
+                        [classify_stat_bytes(t, q, n, caller)],
+                        [classify_stat_bytes_ref(t, q, n, caller)])
 
 
 def write_maf(path, corpus, rng, n_records, n_cols):
@@ -313,7 +431,7 @@ def run_cli(argv):
     return time.perf_counter() - t0
 
 
-def phase_stat(work, corpus, rng, launches):
+def phase_stat(work, corpus, rng):
     """Phase 2: `stat` and `stat -e` on a ~100 Mbp MAF against the host
     engine's bytes."""
     from wgatools_tpu.io.compression import open_input
@@ -338,11 +456,9 @@ def phase_stat(work, corpus, rng, launches):
             raise AssertionError(f"stat each={each}: bytes differ from the host engine")
         log(f"stat each={each}: ok, {len(got)} B identical; port "
             f"{secs:.3f} s, host engine {host_secs:.3f} s")
-    if launches["classify_cat"] == 0:
-        raise AssertionError("stat did not launch kernel classify_cat")
 
 
-def phase_paf2chain(work, corpus, rng, launches):
+def phase_paf2chain(work, corpus, rng):
     """Phase 3: `paf2chain` on 100 000 records x 40 runs against the host
     engine's bytes."""
     from wgatools_tpu.io.compression import open_input
@@ -366,11 +482,9 @@ def phase_paf2chain(work, corpus, rng, launches):
         raise AssertionError("paf2chain: bytes differ from the host engine")
     log(f"paf2chain: ok, {len(got)} B identical; port {secs:.3f} s, "
         f"host engine {host_secs:.3f} s")
-    if launches["liftover_scan"] == 0:
-        raise AssertionError("paf2chain did not launch kernel liftover_scan")
 
 
-def phase_fused(device, bench, launches):
+def phase_fused(device, bench):
     """Phase 4: the fused flagship at bench.py's shape; anchors expanded
     per op must equal the plain full-table liftover scan."""
     import torch
@@ -396,8 +510,6 @@ def phase_fused(device, bench, launches):
     )
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    if launches["fused_adv16"] == 0:
-        raise AssertionError("the fused path did not launch kernel fused_adv16")
     want_stats = classify_stat_cat_ref(bench["cw"], bench["lens"])
     if not torch.equal(stats, want_stats):
         raise AssertionError("fused stats differ from the plain version")
@@ -416,8 +528,109 @@ def phase_fused(device, bench, launches):
         f"ops equal the plain full scan ({secs:.3f} s host wall incl. upload)")
 
 
+def write_call_maf(path, rng, n_records, n_cols):
+    """`call` input: '=' runs (geometric, mean 60 columns) between single
+    events, a SNP or a two-base substitution (60%), an insertion, a deletion
+    or a gap/gap stretch of 1-20 columns (15%, 15%, 10%).  No gap run
+    reaches the default SV cutoff of 50, so `-c 16000000` keeps each record
+    one chunk.  Record i has n_cols + 1001 i columns, every 4th query is on
+    '-'."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    gap = ord("-")
+    with open(path, "w") as f:
+        f.write("##maf version=1.6\n")
+        t_off = 1000
+        for i in range(n_records):
+            n = n_cols + 1001 * i
+            n_ev = n // 60
+            kind = rng.choice(4, size=n_ev, p=[0.6, 0.15, 0.15, 0.1]) + 1
+            lens = np.empty(2 * n_ev + 1, np.int64)
+            lens[0::2] = rng.geometric(1 / 60, n_ev + 1)
+            lens[1::2] = np.where(kind == 1, rng.integers(1, 3, n_ev),
+                                  rng.integers(1, 21, n_ev))
+            codes = np.zeros(2 * n_ev + 1, np.int8)  # 0 '=' 1 X 2 I 3 D 4 W
+            codes[1::2] = kind
+            cat = np.repeat(codes, lens)[:n]
+            cat = np.pad(cat, (0, n - cat.shape[0]))
+            base = rng.integers(0, 4, n)
+            t = bases[base]
+            q = t.copy()
+            x = cat == 1
+            q[x] = bases[(base[x] + rng.integers(1, 4, int(x.sum()))) % 4]
+            t[(cat == 2) | (cat == 4)] = gap
+            q[(cat == 3) | (cat == 4)] = gap
+            t_len = int((t != gap).sum())
+            q_len = int((q != gap).sum())
+            strand = "-" if i % 4 == 3 else "+"
+            f.write(
+                f"a score=0\ns\tref.chr{i}\t{t_off}\t{t_len}\t+\t1000000000\t"
+                + t.tobytes().decode("ascii")
+                + f"\ns\tqry.chr{i}\t{t_off}\t{q_len}\t{strand}\t"
+                "1000000000\t" + q.tobytes().decode("ascii") + "\n\n"
+            )
+            t_off += t_len + 10
+
+
+def phase_maf_tool(work, tool):
+    """Phase 5: `maf2paf` or `maf2chain` on the stat MAF against the host
+    engine's bytes."""
+    from wgatools_tpu.io.compression import open_input
+    from wgatools_tpu.io.maf import MafReader
+    from wgatools_tpu.tools import convert as host
+
+    maf = os.path.join(work, "smoke.maf")
+    out = os.path.join(work, f"smoke.{tool}")
+    secs = run_cli([tool, maf, "-o", out, "-r"])
+    t0 = time.perf_counter()
+    want = io.BytesIO()
+    getattr(host, tool)(MafReader(open_input(maf)), want, device=False)
+    host_secs = time.perf_counter() - t0
+    with open(out, "rb") as f:
+        got = f.read()
+    if got != want.getvalue():
+        raise AssertionError(f"{tool}: bytes differ from the host engine")
+    log(f"{tool}: ok, {len(got)} B identical; port {secs:.3f} s, host engine "
+        f"{host_secs:.3f} s")
+
+
+def call_argv(work, chunk_size, out="call.vcf"):
+    argv = ["call", "-s", os.path.join(work, "call.maf"),
+            "-o", os.path.join(work, out), "-r"]
+    return argv + (["-c", str(chunk_size)] if chunk_size else [])
+
+
+def phase_call(work, rng, chunk_size):
+    """Phase 6: `call -s` on the call MAF (written on first use) at a chunk
+    size (None: the default) against the host engine's bytes."""
+    from wgatools_tpu.io.compression import open_input
+    from wgatools_tpu.io.maf import MafReader
+    from wgatools_tpu.tools.caller import call_var_maf
+
+    maf = os.path.join(work, "call.maf")
+    if not os.path.exists(maf):
+        t0 = time.perf_counter()
+        write_call_maf(maf, rng, CALL_RECORDS, CALL_COLUMNS)
+        log(f"call: wrote {os.path.getsize(maf)} B of MAF in "
+            f"{time.perf_counter() - t0:.3f} s")
+    argv = call_argv(work, chunk_size)
+    secs = run_cli(argv)
+    t0 = time.perf_counter()
+    want = io.BytesIO()
+    call_var_maf(MafReader(open_input(maf)), None, want, True, False, 50,
+                 chunk_size=chunk_size)
+    host_secs = time.perf_counter() - t0
+    with open(argv[4], "rb") as f:
+        got = f.read()
+    if got != want.getvalue():
+        raise AssertionError(f"call -c {chunk_size}: bytes differ from the "
+                             "host engine")
+    lines = got.count(b"\n")
+    log(f"call -c {chunk_size}: ok, {len(got)} B ({lines} lines) identical; "
+        f"port {secs:.3f} s, host engine {host_secs:.3f} s")
+
+
 def profile_tools(work, out_dir):
-    """--profile: `stat` and `paf2chain` once more on the phases' inputs,
+    """--profile: the tools once more on the phases' inputs,
     timed plain, then under torch.profiler (device time by kernel and copy)
     and under cProfile (host time by function).  Full tables go to
     out_dir/profile.txt, a summary to stdout."""
@@ -436,6 +649,10 @@ def profile_tools(work, out_dir):
                       "-o", os.path.join(work, "prof.tsv"), "-r"]),
             ("paf2chain", ["paf2chain", os.path.join(work, "smoke.paf"),
                            "-o", os.path.join(work, "prof.chain"), "-r"]),
+            ("maf2paf", ["maf2paf", os.path.join(work, "smoke.maf"),
+                         "-o", os.path.join(work, "prof.paf"), "-r"]),
+            ("call", call_argv(work, None, "prof.vcf")),
+            ("call -c 16000000", call_argv(work, 16_000_000, "prof.vcf")),
         ):
             plain = run_cli(argv)
             with profile(activities=[ProfilerActivity.CPU,
@@ -483,8 +700,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR",
-                    help="after the checks, profile `stat` and `paf2chain` "
-                    "on the device and the host; tables go to DIR/profile.txt")
+                    help="after the checks, profile `stat`, `paf2chain`, "
+                    "`maf2paf` and `call` on the device and the host; tables "
+                    "go to DIR/profile.txt")
     args = ap.parse_args()
 
     import torch
@@ -522,28 +740,45 @@ def main():
         bench = phase_kernels(rng, device, gates, times)
         log(f"phase kernels: ok in {time.perf_counter() - t0:.3f} s")
 
-        _build.reset_launches()
-        launches = _build.LAUNCHES
-        for name, phase in (
-            ("stat", lambda: phase_stat(work, corpus, rng, launches)),
-            ("paf2chain", lambda: phase_paf2chain(work, corpus, rng, launches)),
-            ("fused", lambda: phase_fused(device, bench, launches)),
+        # each phase, with the kernels its path must launch; the counts are
+        # set to 0 just before it and read just after
+        launched = {name: 0 for name in _build.LAUNCHES}
+        for name, phase, kernels in (
+            ("stat", lambda: phase_stat(work, corpus, rng), ["classify_cat"]),
+            ("paf2chain", lambda: phase_paf2chain(work, corpus, rng),
+             ["liftover_scan"]),
+            ("fused", lambda: phase_fused(device, bench), ["fused_adv16"]),
+            ("maf2paf", lambda: phase_maf_tool(work, "maf2paf"),
+             ["classify_cat"]),
+            ("maf2chain", lambda: phase_maf_tool(work, "maf2chain"),
+             ["classify_cat"]),
+            ("call", lambda: phase_call(work, rng, None), ["classify_cat"]),
+            ("call -c 16000000", lambda: phase_call(work, rng, 16_000_000),
+             ["classify_bytes"]),
         ):
+            _build.reset_launches()
             t0 = time.perf_counter()
             phase()
-            log(f"phase {name}: ok in {time.perf_counter() - t0:.3f} s")
-        launched = dict(launches)
+            counts = dict(_build.LAUNCHES)
+            log(f"phase {name}: ok in {time.perf_counter() - t0:.3f} s, "
+                f"launches {counts}")
+            for kernel in kernels:
+                if counts[kernel] == 0:
+                    raise AssertionError(f"{name} did not launch kernel {kernel}")
+            for kernel, count in counts.items():
+                launched[kernel] += count
         if args.profile:
             profile_tools(work, os.path.abspath(args.profile))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    log(f"launches on the main path: {launched}")
+    log(f"launches on the tool phases: {launched}")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
     csrc = "wgatools_tpu_torch/csrc"
     kernels = [
         ("classify_cat", "classify_cat.cu", "wgatools_tpu/ops/classify.py:1097"),
+        ("classify_bytes", "classify_bytes.cu", "wgatools_tpu/ops/classify.py:247"),
         ("liftover_scan", "liftover_scan.cu", "wgatools_tpu/ops/liftover.py:266"),
         ("fused_adv16", "fused_adv16.cu", "wgatools_tpu/ops/fused.py:662"),
     ]

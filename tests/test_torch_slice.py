@@ -1,11 +1,14 @@
 """The wgatools_tpu_torch slice end to end on the CPU (WGA_TORCH_DEVICE=cpu):
-`stat` on MAF and `paf2chain` against the TPU package's device and host
-engines, the command line, and the rule that the port never imports jax.
+`stat` on MAF, `maf2paf`, `maf2chain`, `call` and `paf2chain` against the
+TPU package's device and host engines, the command line, and the rule that
+the port never imports jax.
 """
 
 import importlib.util
 import io
 import os
+import random
+import re
 import subprocess
 import sys
 
@@ -13,15 +16,18 @@ import numpy as np
 import pytest
 import torch
 
-from synth import make_paf_case
+from synth import build_alignment, make_paf_case, random_ops
 from wgatools_tpu.core.cigar import cigar_from_seqs, rec_stat_from_cigar, seq_bytes
 from wgatools_tpu.io.maf import MafReader
 from wgatools_tpu.io.paf import PafReader
 from wgatools_tpu.ops import batch as jax_batch
+from wgatools_tpu.tools import caller as jax_caller
 from wgatools_tpu.tools import convert as jax_convert
 from wgatools_tpu.tools import stat as jax_stat
 from wgatools_tpu_torch import cli
 from wgatools_tpu_torch.ops import batch as torch_batch
+from wgatools_tpu_torch.ops import classify as torch_classify
+from wgatools_tpu_torch.tools import caller as torch_caller
 from wgatools_tpu_torch.tools import convert as torch_convert
 from wgatools_tpu_torch.tools import stat as torch_stat
 
@@ -38,14 +44,15 @@ def _corpus():
     return mod
 
 
-def _maf_bytes(seed, n_records, n_cols):
-    """make_corpus's alignments as MAF text, every 5th query on '-'."""
+def _maf_bytes(seed, n_records, n_cols, min_cols=None):
+    """make_corpus's alignments as MAF text, every 5th query on '-'; about
+    min_cols (default n_cols // 2) to n_cols columns per record."""
     corpus = _corpus()
     rng = np.random.default_rng(seed)
     out = ["##maf version=1.6\n"]
     t_off = 1000
     for i in range(n_records):
-        n = int(rng.integers(n_cols // 2, n_cols + 1))
+        n = int(rng.integers(min_cols or n_cols // 2, n_cols + 1))
         vals, lens = corpus.run_table(rng, max(3, n // 18))
         t, q = corpus.realize(rng, vals, lens)
         tl, ql = int((t != 45).sum()), int((q != 45).sum())
@@ -56,6 +63,39 @@ def _maf_bytes(seed, n_records, n_cols):
             f"\t100000000\t{q.tobytes().decode()}\n\n"
         )
         t_off += tl + 10
+    return "".join(out).encode()
+
+
+def _synth_maf(seed, n_records):
+    """tests/synth.py alignments as three-row MAF records: ref, a query
+    (every 3rd on '-') and a third species, with gap/gap columns where the
+    first two rows both miss a stretch the third has."""
+    rng = random.Random(seed)
+    out = ["##maf version=1.6\n"]
+    t_off = 500
+    for i in range(n_records):
+        t_parts, q_parts = [], []
+        for _ in range(rng.randint(1, 6)):
+            t, q = build_alignment(
+                rng, random_ops(rng, rng.randint(3, 40), lead_trail_indel=True)
+            )
+            t_parts.append(t)
+            q_parts.append(q)
+            if rng.random() < 0.6:
+                n = rng.randint(1, 70)
+                t_parts.append("-" * n)
+                q_parts.append("-" * n)
+        t, q = "".join(t_parts), "".join(q_parts)
+        o = "".join(c if rng.random() < 0.9 else rng.choice("ACGT-") for c in
+                    t.replace("-", "A"))
+        rows = [("ref.chr1", t, "+"), (f"q{i % 2}.chr1", q, "-+"[i % 3 != 0]),
+                ("other.chr1", o, "+")]
+        out.append("a score=0\n")
+        for name, seq, strand in rows:
+            size = sum(1 for c in seq if c != "-")
+            out.append(f"s\t{name}\t{t_off}\t{size}\t{strand}\t100000000\t{seq}\n")
+        out.append("\n")
+        t_off += len(t) + 7
     return "".join(out).encode()
 
 
@@ -157,6 +197,97 @@ def test_paf2chain_outlier_records():
     assert got.getvalue().count(b"chain\t") == 4
 
 
+def _route_spy(monkeypatch):
+    """Records which plain statistics version each device batch used: the
+    category plane (kernel A's) or the byte planes (kernel D's)."""
+    seen = []
+    for name, route in (("classify_stat_cat_ref", "cat"),
+                        ("classify_stat_bytes_ref", "bytes")):
+        real = getattr(torch_classify, name)
+        monkeypatch.setattr(torch_classify, name, lambda *a, _r=real,
+                            _route=route: (seen.append(_route), _r(*a))[1])
+    return seen
+
+
+def _jax_device_mode(monkeypatch):
+    """The TPU package's device paths on the CPU, at any input size."""
+    monkeypatch.setenv("WGA_TPU_DEVICE", "1")
+    monkeypatch.setattr("wgatools_tpu.core.device.DEVICE_MIN_COLUMNS", 1)
+    monkeypatch.setattr("wgatools_tpu.tools.stat.DEVICE_MIN_COLUMNS", 1)
+
+
+@pytest.mark.parametrize("query_name", [None, "other.chr1"])
+@pytest.mark.parametrize("tool", ["maf2paf", "maf2chain"])
+def test_maf2paf_maf2chain_match_jax_device_and_host(tool, query_name,
+                                                      monkeypatch):
+    data = _synth_maf(7, 14)
+    jax_tool = getattr(jax_convert, tool)
+    host = io.BytesIO()
+    jax_tool(MafReader(io.BytesIO(data)), host, query_name, device=False)
+    auto = io.BytesIO()  # small input: by default the host engine answers
+    getattr(torch_convert, tool)(MafReader(io.BytesIO(data)), auto, CPU,
+                                 query_name)
+    assert auto.getvalue() == host.getvalue()
+
+    _jax_device_mode(monkeypatch)
+    jax_dev = io.BytesIO()
+    jax_tool(MafReader(io.BytesIO(data)), jax_dev, query_name, device=True)
+    monkeypatch.setattr(torch_convert, "DEVICE_MIN_COLUMNS", 1)
+    # a small batch budget: many flushes through the one-in-flight pipeline
+    monkeypatch.setattr(torch_convert, "DEFAULT_BATCH_COLUMNS", 3000)
+    seen = _route_spy(monkeypatch)
+    got = io.BytesIO()
+    getattr(torch_convert, tool)(MafReader(io.BytesIO(data)), got, CPU,
+                                 query_name)
+    assert got.getvalue() == jax_dev.getvalue() == host.getvalue()
+    assert len(seen) > 3 and set(seen) == {"cat"}
+
+
+def _call(fn, data, chunk_size, query_name=None, regex=None, **kw):
+    out = io.BytesIO()
+    fn(MafReader(io.BytesIO(data)), None, out, True, True, 10, sample="s1",
+       query_name=query_name, query_regex=regex, chunk_size=chunk_size, **kw)
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("select", [None, "name", "regex"])
+@pytest.mark.parametrize("route", ["grouped", "bytes"])
+def test_call_matches_jax_device_and_host(route, select, monkeypatch):
+    """Small chunks group into one category-plane batch per record; a chunk
+    size past every record sends each record as one [1, n] batch, which
+    takes the byte planes unless n is a multiple of 8."""
+    data = _synth_maf(11, 12)
+    chunk_size = 60 if route == "grouped" else 10**6
+    sel = {"query_name": "other.chr1" if select == "name" else None,
+           "regex": re.compile(r"^q1\..*$") if select == "regex" else None}
+    host = _call(jax_caller.call_var_maf, data, chunk_size, **sel)
+    auto = _call(torch_caller.call_var_maf, data, chunk_size, device=CPU, **sel)
+    assert auto == host  # small input: by default the host engine answers
+    _jax_device_mode(monkeypatch)
+    jax_dev = _call(jax_caller.call_var_maf, data, chunk_size, **sel)
+    monkeypatch.setattr(torch_caller, "DEVICE_MIN_COLUMNS", 1)
+    seen = _route_spy(monkeypatch)
+    got = _call(torch_caller.call_var_maf, data, chunk_size, device=CPU, **sel)
+    assert got == jax_dev == host
+    assert got.count(b"\n") > 40
+    assert ("cat" if route == "grouped" else "bytes") in seen
+
+
+def test_call_groups_chunks_by_the_budget(monkeypatch):
+    """A record's chunks go up in several batches once they pass the group
+    budget, in order, with the bytes of the host engine."""
+    data = _synth_maf(13, 4)
+    host = _call(jax_caller.call_var_maf, data, 40)
+    monkeypatch.setattr(torch_caller, "DEVICE_MIN_COLUMNS", 1)
+    monkeypatch.setattr(torch_caller, "GROUP_BUDGET", 200)
+    batches = []
+    real = torch_caller.batch_runs
+    monkeypatch.setattr(torch_caller, "batch_runs", lambda t, *a, **k: (
+        batches.append(t.shape[0]), real(t, *a, **k))[1])
+    assert _call(torch_caller.call_var_maf, data, 40, device=CPU) == host
+    assert len(batches) > 8 and max(batches) > 1
+
+
 def _env():
     env = dict(os.environ, WGA_TORCH_DEVICE="cpu", PYTHONPATH=REPO)
     env.pop("JAX_PLATFORMS", None)
@@ -177,6 +308,35 @@ def test_cli_stat_subprocess(tmp_path):
     assert proc.stdout == _host_stat(data, False)
 
 
+@pytest.mark.parametrize(
+    "argv", [["maf2paf"], ["maf2chain"], ["call", "-s", "-c", "5000000"]]
+)
+def test_cli_maf_tools_subprocess(argv, tmp_path):
+    """`python -m wgatools_tpu_torch` on one record past DEVICE_MIN_COLUMNS
+    with a width that is not a multiple of 8: the device path by default,
+    and for `call` with a chunk past the record, the byte planes."""
+    data = _maf_bytes(5, 1, 4_400_000, min_cols=4_300_000)
+    maf = tmp_path / "in.maf"
+    maf.write_bytes(data)
+    width = len(data.split(b"\n")[2].split(b"\t")[-1])
+    assert width >= 1 << 22 and width % 8
+    out = tmp_path / "out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "wgatools_tpu_torch", argv[0], str(maf),
+         "-o", str(out), *argv[1:]],
+        capture_output=True, env=_env(), cwd=REPO, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr.decode()
+    want = io.BytesIO()
+    if argv[0] == "call":
+        jax_caller.call_var_maf(MafReader(io.BytesIO(data)), None, want, True,
+                                False, 50, chunk_size=5_000_000)
+    else:
+        getattr(jax_convert, argv[0])(MafReader(io.BytesIO(data)), want,
+                                      device=False)
+    assert out.read_bytes() == want.getvalue()
+
+
 IMPORT_GUARD = """
 import pkgutil, sys, importlib
 import wgatools_tpu_torch
@@ -185,8 +345,17 @@ for m in pkgutil.walk_packages(wgatools_tpu_torch.__path__, "wgatools_tpu_torch.
         importlib.import_module(m.name)
 from wgatools_tpu_torch.cli import main
 from wgatools_tpu_torch.kernels import _build
-assert main(["stat", "-e", sys.argv[1], "-o", sys.argv[3], "-r"]) == 0
-assert main(["paf2chain", sys.argv[2], "-o", sys.argv[4], "-r"]) == 0
+from wgatools_tpu_torch.tools import caller, convert, stat
+maf, paf, out = sys.argv[1:]
+# the device routes at any size, one batch per few records
+for mod in (caller, convert, stat):
+    mod.DEVICE_MIN_COLUMNS = 1
+assert main(["stat", "-e", maf, "-o", out + ".tsv", "-r"]) == 0
+assert main(["paf2chain", paf, "-o", out + ".chain", "-r"]) == 0
+assert main(["maf2paf", maf, "-o", out + ".paf", "-r"]) == 0
+assert main(["maf2chain", maf, "-o", out + ".m.chain", "-r"]) == 0
+assert main(["call", "-s", maf, "-o", out + ".a.vcf", "-r", "-c", "333"]) == 0
+assert main(["call", "-s", maf, "-o", out + ".b.vcf", "-r"]) == 0
 print(sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")))
 """
 
@@ -195,15 +364,20 @@ def test_port_never_imports_jax(tmp_path):
     maf, paf = tmp_path / "in.maf", tmp_path / "in.paf"
     maf.write_bytes(_maf_bytes(3, 4, 2000))
     paf.write_bytes(_paf_bytes(8))
-    outs = [str(tmp_path / "o.tsv"), str(tmp_path / "o.chain")]
+    out = str(tmp_path / "o")
     proc = subprocess.run(
-        [sys.executable, "-c", IMPORT_GUARD, str(maf), str(paf), *outs],
+        [sys.executable, "-c", IMPORT_GUARD, str(maf), str(paf), out],
         capture_output=True, text=True, env=_env(), cwd=REPO, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
-    with open(outs[0], "rb") as f:
+    with open(out + ".tsv", "rb") as f:
         assert f.read() == _host_stat(maf.read_bytes(), True)
+    want = io.BytesIO()
+    jax_convert.maf2paf(MafReader(io.BytesIO(maf.read_bytes())), want,
+                        device=False)
+    with open(out + ".paf", "rb") as f:
+        assert f.read() == want.getvalue()
 
 
 def test_cli_refuses_cuda_without_cuda(tmp_path, monkeypatch):
@@ -216,7 +390,8 @@ def test_cli_refuses_cuda_without_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "argv", [["maf2paf"], ["stat", "-f", "paf"], ["chain2paf"], ["pafcov"]]
+    "argv", [["validate"], ["stat", "-f", "paf"], ["chain2paf"], ["pafcov"],
+             ["call", "-f", "paf"]]
 )
 def test_cli_unported_subcommands_exit_1(argv, tmp_path, caplog, monkeypatch):
     monkeypatch.setenv("WGA_TORCH_DEVICE", "cpu")

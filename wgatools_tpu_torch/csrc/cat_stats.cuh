@@ -1,5 +1,7 @@
 // Category-plane column statistics: the device code shared by kernel A
-// (classify_cat.cu) and kernel C (fused_adv16.cu).
+// (classify_cat.cu) and kernel C (fused_adv16.cu); kernel D
+// (classify_bytes.cu) builds the same nibble words from byte planes and
+// counts them with count_word and add_chunk_counters.
 //
 // Replaces the body of wgatools_tpu/ops/classify.py::_kernel_cat (the
 // Pallas kernel classify_stat_pallas_cat).  Input is ONE int32 [B, LW]
@@ -54,44 +56,41 @@ __device__ __forceinline__ uint32_t run_starts(uint32_t w, uint32_t prev_top) {
   return nz >> 3;
 }
 
-// Counters of words [chunk * CAT_CHUNK_WORDS, ...) of one row, added into
-// out[row, :].  Must be called by every thread of the block.
+// Bit 0 of each nibble of a word whose first `rem` columns are valid.
+__device__ __forceinline__ uint32_t valid_nibbles(long long rem) {
+  return rem >= 8 ? M1 : (M1 & ((1u << (4 * static_cast<int>(rem))) - 1u));
+}
+
+// Adds the counters of one word of 8 category nibbles to c (eq|gg, ins,
+// del, gg, run starts, ins starts, del starts).  prev_top is the category
+// of the column before the word; row_start forces a run start at its first
+// column (column 0 of a row); vm = valid_nibbles(columns left in the row).
 template <bool CALLER>
-__device__ __forceinline__ void cat_stats_chunk(
-    const uint32_t* __restrict__ cw, const int* __restrict__ lengths,
-    int* __restrict__ out, long long LW, long long row, long long chunk) {
-  long long n = lengths[row];
-  n = n < 0 ? 0 : (n > 8 * LW ? 8 * LW : n);
-  const long long nw = (n + 7) >> 3;
-  const long long k0 = chunk * CAT_CHUNK_WORDS;
-  if (k0 >= nw) return;  // uniform over the block
-  const long long k1 = k0 + CAT_CHUNK_WORDS < nw ? k0 + CAT_CHUNK_WORDS : nw;
-  const uint32_t* r = cw + row * LW;
+__device__ __forceinline__ void count_word(uint32_t w, uint32_t prev_top,
+                                           bool row_start, uint32_t vm,
+                                           uint32_t (&c)[7]) {
+  uint32_t rs = run_starts<CALLER>(w, prev_top);
+  if (row_start) rs |= 1u;
+  rs &= vm;
+  const uint32_t b0 = w & vm;
+  const uint32_t b1 = (w >> 1) & vm;
+  const uint32_t b2 = (w >> 2) & vm;
+  const uint32_t b3 = (w >> 3) & vm;
+  c[0] += __popc(b0);
+  c[1] += __popc(b1);
+  c[2] += __popc(b2);
+  c[3] += __popc(b3);
+  c[4] += __popc(rs);
+  c[5] += __popc(rs & b1);
+  c[6] += __popc(rs & b2);
+}
 
-  // eq|gg, ins, del, gg, run starts, ins starts, del starts
-  uint32_t c[7] = {0, 0, 0, 0, 0, 0, 0};
-  for (long long k = k0 + threadIdx.x; k < k1; k += blockDim.x) {
-    const uint32_t w = __ldg(r + k);
-    const uint32_t prev = k ? __ldg(r + k - 1) : 0u;
-    const long long rem = n - 8 * k;  // >= 1 because k < nw
-    const uint32_t vm =
-        rem >= 8 ? M1 : (M1 & ((1u << (4 * static_cast<int>(rem))) - 1u));
-    uint32_t rs = run_starts<CALLER>(w, prev >> 28);
-    if (k == 0) rs |= 1u;  // column 0 of a row always starts a run
-    rs &= vm;
-    const uint32_t b0 = w & vm;
-    const uint32_t b1 = (w >> 1) & vm;
-    const uint32_t b2 = (w >> 2) & vm;
-    const uint32_t b3 = (w >> 3) & vm;
-    c[0] += __popc(b0);
-    c[1] += __popc(b1);
-    c[2] += __popc(b2);
-    c[3] += __popc(b3);
-    c[4] += __popc(rs);
-    c[5] += __popc(rs & b1);
-    c[6] += __popc(rs & b2);
-  }
-
+// Reduces the block's count_word counters and adds them into o = out[row]
+// as the eight stats; `valid` is the number of valid columns the block
+// covered.  Must be called by every thread of the block.
+template <bool CALLER>
+__device__ __forceinline__ void add_chunk_counters(const uint32_t (&c)[7],
+                                                   uint32_t valid, int* o) {
   __shared__ uint32_t part[32][7];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -110,9 +109,6 @@ __device__ __forceinline__ void cat_stats_chunk(
 #pragma unroll
       for (int j = 0; j < 7; ++j) s[j] += part[w][j];
     }
-    const long long hi = 8 * k1 < n ? 8 * k1 : n;
-    const uint32_t valid = static_cast<uint32_t>(hi - 8 * k0);
-    int* o = out + row * N_STATS;
     atomicAdd(o + 0, static_cast<int>(CALLER ? s[0] - s[3] : s[0]));
     atomicAdd(o + 1, static_cast<int>(valid - s[0] - s[1] - s[2]));
     atomicAdd(o + 2, static_cast<int>(s[1]));
@@ -122,6 +118,32 @@ __device__ __forceinline__ void cat_stats_chunk(
     atomicAdd(o + 6, static_cast<int>(s[3]));
     atomicAdd(o + 7, static_cast<int>(s[4]));
   }
+}
+
+// Counters of words [chunk * CAT_CHUNK_WORDS, ...) of one row, added into
+// out[row, :].  Must be called by every thread of the block.
+template <bool CALLER>
+__device__ __forceinline__ void cat_stats_chunk(
+    const uint32_t* __restrict__ cw, const int* __restrict__ lengths,
+    int* __restrict__ out, long long LW, long long row, long long chunk) {
+  long long n = lengths[row];
+  n = n < 0 ? 0 : (n > 8 * LW ? 8 * LW : n);
+  const long long nw = (n + 7) >> 3;
+  const long long k0 = chunk * CAT_CHUNK_WORDS;
+  if (k0 >= nw) return;  // uniform over the block
+  const long long k1 = k0 + CAT_CHUNK_WORDS < nw ? k0 + CAT_CHUNK_WORDS : nw;
+  const uint32_t* r = cw + row * LW;
+
+  uint32_t c[7] = {0, 0, 0, 0, 0, 0, 0};
+  for (long long k = k0 + threadIdx.x; k < k1; k += blockDim.x) {
+    const uint32_t w = __ldg(r + k);
+    const uint32_t prev = k ? __ldg(r + k - 1) : 0u;
+    // n - 8k >= 1 because k < nw
+    count_word<CALLER>(w, prev >> 28, k == 0, valid_nibbles(n - 8 * k), c);
+  }
+  const long long hi = 8 * k1 < n ? 8 * k1 : n;
+  add_chunk_counters<CALLER>(c, static_cast<uint32_t>(hi - 8 * k0),
+                             out + row * N_STATS);
 }
 
 }  // namespace wga

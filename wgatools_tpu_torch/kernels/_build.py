@@ -1,9 +1,10 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-Every `csrc/*.cu` is compiled by one `nvcc` call into one shared library
-with a plain C interface, under `build/wgatools_tpu_torch/` beside the
-package, at first use (never at import: the CPU tests import every module).
-The library is rebuilt when a source is newer than it.  It is loaded with
+Each `csrc/*.cu` is compiled by its own `nvcc` process, all started
+together, and the objects are linked into one shared library with a plain
+C interface, under `build/wgatools_tpu_torch/` beside the package, at first
+use (never at import: the CPU tests import every module).  The library is
+rebuilt when a source is newer than it.  It is loaded with
 ctypes; pointers and the stream go as `c_void_p`.  A failed build or launch
 raises: nothing here falls back to the plain PyTorch versions.
 
@@ -29,7 +30,7 @@ LIB_NAME = "libwgatorch.so"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -39,6 +40,7 @@ _LL = ctypes.c_longlong
 # C argument types of each kernel entry point; the stream is appended last
 SIGNATURES = {
     "classify_cat": [_P, _P, _P, _I, _LL, _I],
+    "classify_bytes": [_P, _P, _P, _P, _I, _LL, _I],
     "liftover_scan": [_P, _P, _P, _P, _I, _LL, _I],
     "fused_adv16": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _LL, _I],
 }
@@ -79,21 +81,45 @@ def _stale(lib_path) -> bool:
 
 
 def build(build_dir) -> str:
-    """Compile csrc/*.cu into build_dir/LIB_NAME; returns its path.  The
-    compiler's output (ptxas register and shared-memory use) is kept in
-    build_dir/nvcc.log."""
+    """Compile each csrc/*.cu in parallel and link them into
+    build_dir/LIB_NAME; returns its path.  The compilers' output (ptxas
+    register and shared-memory use) is kept in build_dir/nvcc.log."""
     nvcc = find_nvcc()
     os.makedirs(build_dir, exist_ok=True)
     lib_path = os.path.join(build_dir, LIB_NAME)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(os.path.join(build_dir, "nvcc.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+    tag = os.getpid()
+    steps = []
+    for src in _sources():
+        stem = os.path.splitext(os.path.basename(src))[0]
+        obj = os.path.join(build_dir, f"{stem}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        steps.append((cmd, obj, proc))
+    log, failed = [], []
+    for cmd, _, proc in steps:  # wait for every compiler, failed or not
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n{out[-4000:]}")
+    objs = [obj for _, obj, _ in steps]
+    try:
+        if not failed:
+            tmp = f"{lib_path}.{tag}.tmp"
+            cmd = [nvcc, "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"link (exit {proc.returncode}):\n"
+                              f"{proc.stderr[-4000:]}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        with open(os.path.join(build_dir, "nvcc.log"), "w") as f:
+            f.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib_path)  # atomic: a concurrent loader never sees half
     return lib_path
 

@@ -125,30 +125,42 @@ def batch_rec_stats(pairs, negatives, device,
 
 class _PinnedUpload:
     """Two pinned host slots for non_blocking uploads on the current
-    stream.  A slot holds one batch's category plane and lengths back to
-    back, so a batch goes up in one copy."""
+    stream.  A slot holds one batch's arrays (a category plane and its
+    lengths, or two byte planes) back to back, each at a 16-byte aligned
+    offset, so a batch goes up in one copy."""
 
     def __init__(self, device):
         self.device = device
         self.slots = [(None, None), (None, None)]  # (pinned buffer, event)
         self.turn = 0
 
-    def upload(self, cw, lengths):
+    def upload(self, *arrays):
+        """numpy arrays -> tensors of the same dtypes and shapes on the
+        device, without waiting for the copy."""
         host, event = self.slots[self.turn]
         if event is not None:
             event.synchronize()  # its previous upload must have left
-        n = cw.size + lengths.size
+        offsets, n = [], 0
+        for a in arrays:
+            offsets.append(n)
+            n += -(-a.nbytes // 16) * 16
         if host is None or host.numel() < n:
-            host = torch.empty(n, dtype=torch.int32, pin_memory=True)
+            host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
         staged = host.numpy()
-        staged[: cw.size] = cw.reshape(-1)
-        staged[cw.size : n] = lengths
+        for a, off in zip(arrays, offsets):
+            staged[off : off + a.nbytes] = np.ascontiguousarray(a).reshape(
+                -1).view(np.uint8)
         dev = host[:n].to(self.device, non_blocking=True)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
         self.slots[self.turn] = (host, event)
         self.turn ^= 1
-        return dev[: cw.size].view(cw.shape), dev[cw.size :]
+        return tuple(
+            dev[off : off + a.nbytes]
+            .view(torch.from_numpy(np.empty(0, a.dtype)).dtype)
+            .view(a.shape)
+            for a, off in zip(arrays, offsets)
+        )
 
 
 def stream_seq_pair_stats(items, device, batch_columns=DEFAULT_BATCH_COLUMNS):

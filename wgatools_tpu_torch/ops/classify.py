@@ -1,17 +1,23 @@
-"""Category-plane column classify + per-record statistics.
+"""Column classify + per-record statistics.
 
-The port of the main-path pieces of wgatools_tpu/ops/classify.py: the host
-packs each aligned column pair (t, q) into ONE 4-bit one-hot category code
-through a 64K LUT (X=0, EQ=1, I=2, D=4, GG=9), eight columns per int32 word,
-and the device reduces the plane to int32 [B, 8] per-record counters
+The port of the main-path pieces of wgatools_tpu/ops/classify.py.  Each
+aligned column pair (t, q) is one category, reduced on the device to int32
+[B, 8] per-record counters
 
     matched, mismatched, ins_size, del_size, ins_events, del_events,
     gap/gap, runs
 
 in ext mode (gap/gap columns are '=' and merge into '=' runs,
 cigar_cat_ext) or caller mode (gap/gap is its own W category,
-cigar_cat_ext_caller).  `classify_stat_cat` launches kernel A
-(csrc/classify_cat.cu) on a CUDA tensor; `classify_stat_cat_ref` is the
+cigar_cat_ext_caller).  Two inputs:
+
+- the category plane: the host packs each pair into ONE 4-bit one-hot code
+  through a 64K LUT (X=0, EQ=1, I=2, D=4, GG=9), eight columns per int32
+  word; `classify_stat_cat` launches kernel A (csrc/classify_cat.cu);
+- the byte planes: uint8 t, q [B, L] already on the device;
+  `classify_stat_bytes` launches kernel D (csrc/classify_bytes.cu).
+
+Each wrapper launches its kernel on a CUDA tensor; its `_ref` twin is the
 plain PyTorch version it is held against, and the one a CPU tensor takes.
 """
 
@@ -34,6 +40,9 @@ STAT_RUNS = 7
 N_STATS = 8
 
 CAT_X, CAT_EQ, CAT_I, CAT_D, CAT_GG = 0, 1, 2, 4, 9
+
+# standard category codes of the run tables (wgatools_tpu.core.cigar)
+EQ, X, I, D, W = 0, 1, 2, 3, 4
 
 
 def _build_cat_lut64k():
@@ -155,14 +164,108 @@ def classify_stat_cat(cw, lengths, caller=False):
     return out
 
 
+def classify_columns(t, q, caller=False):
+    """uint8 [B, L] byte planes -> uint8 [B, L] standard codes (EQ X I D W):
+    ext mode (cigar_cat_ext) gives '=' to equal bytes, gap/gap included;
+    caller mode (cigar_cat_ext_caller) gives W to gap/gap."""
+    tg = t == GAP
+    qg = q == GAP
+    cat = torch.full_like(t, X)
+    if caller:
+        cat.masked_fill_(t == q, EQ)
+        cat.masked_fill_(qg, D)
+        cat.masked_fill_(tg, I)
+        cat.masked_fill_(tg & qg, W)
+    else:
+        cat.masked_fill_(qg, D)
+        cat.masked_fill_(tg, I)
+        cat.masked_fill_(t == q, EQ)
+    return cat
+
+
+def cat_to_std(c, caller=False):
+    """One-hot category nibbles (any integer tensor) -> uint8 standard codes.
+    Ext mode masks bit 3 first, so that GG folds into EQ: gap/gap merges
+    into '=' runs.  Codes the LUT never makes give X."""
+    if not caller:
+        c = c & 7
+    std = torch.full(c.shape, X, dtype=torch.uint8, device=c.device)
+    for cat, code in ((CAT_EQ, EQ), (CAT_I, I), (CAT_D, D), (CAT_GG, W)):
+        std.masked_fill_(c == cat, code)
+    return std
+
+
+def classify_stat_bytes_ref(t, q, lengths, caller=False):
+    """Plain PyTorch version of kernel D (the port of classify_stat_jnp):
+    uint8 t, q [B, L] + int32 [B] lengths -> int32 [B, 8].  Columns >=
+    lengths[b] are masked, so whatever the padding holds does not count."""
+    B, L = t.shape
+    cat = classify_columns(t, q, caller)
+    col = torch.arange(L, device=t.device)
+    valid = col[None, :] < lengths.to(t.device)[:, None]
+    start = torch.ones_like(valid)
+    start[:, 1:] = cat[:, 1:] != cat[:, :-1]
+    start &= valid
+    is_i = (cat == I) & valid
+    is_d = (cat == D) & valid
+
+    def count(m):
+        return m.sum(dim=1, dtype=torch.int32)
+
+    return torch.stack(
+        [
+            count((cat == EQ) & valid),
+            count((cat == X) & valid),
+            count(is_i),
+            count(is_d),
+            count(start & is_i),
+            count(start & is_d),
+            count((t == GAP) & (q == GAP) & valid),
+            count(start),
+        ],
+        dim=1,
+    )
+
+
+def classify_stat_bytes(t, q, lengths, caller=False):
+    """Kernel D on CUDA tensors, its plain version on CPU tensors.
+
+    t, q: uint8 [B, L] (any L; rows need not be word-aligned); lengths:
+    int32 [B] in columns, on the same device.  Returns int32 [B, 8]."""
+    if t.device.type == "cpu":
+        return classify_stat_bytes_ref(t, q, lengths, caller)
+    _build.check_cuda(t, q, lengths)
+    if t.dtype != torch.uint8 or q.dtype != torch.uint8:
+        raise ValueError("classify_stat_bytes takes uint8 t and q")
+    if lengths.dtype != torch.int32:
+        raise ValueError("classify_stat_bytes takes int32 lengths")
+    B, L = t.shape
+    if q.shape != t.shape or lengths.shape != (B,):
+        raise ValueError(
+            f"shapes t {tuple(t.shape)}, q {tuple(q.shape)}, lengths "
+            f"{tuple(lengths.shape)} do not match"
+        )
+    if L >= 2**31:
+        raise ValueError("row width would wrap the int32 counters")
+    out = torch.zeros((B, N_STATS), dtype=torch.int32, device=t.device)
+    _build.launch("classify_bytes", t, q, lengths, out, B, L, int(caller))
+    return out
+
+
 def column_stats(t, q, lengths, device, caller=False):
-    """uint8 [B, L] numpy byte planes + lengths -> int32 [B, 8] counters on
-    `device`: packed into the category plane on the host, reduced by
-    classify_stat_cat.  Rows of 2^31 columns or more would wrap the int32
-    counters and are refused (batch callers route such records to the
-    int64 host engine, ops.batch.INT32_SAFE_COLUMNS)."""
+    """uint8 [B, L] byte planes + lengths -> int32 [B, 8] counters on
+    `device`.  Host numpy planes are packed into the category plane and
+    reduced by classify_stat_cat; byte tensors already on the device are
+    reduced in place by classify_stat_bytes, as the TPU package sends
+    device-resident bytes to its byte kernel.  Rows of 2^31 columns or
+    more would wrap the int32 counters and are refused (batch callers route
+    such records to the int64 host engine, ops.batch.INT32_SAFE_COLUMNS)."""
     if t.shape[1] >= 2**31:
         raise ValueError("row width would wrap the int32 counters")
+    if isinstance(t, torch.Tensor):
+        lengths = torch.as_tensor(lengths, dtype=torch.int32)
+        return classify_stat_bytes(t.to(device), q.to(device),
+                                   lengths.to(device), caller)
     pad = -t.shape[1] % 8
     if pad:  # padding columns lie beyond every length and are masked
         t = np.pad(t, ((0, 0), (0, pad)), constant_values=GAP)

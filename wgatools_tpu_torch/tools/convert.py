@@ -1,11 +1,19 @@
-"""`paf2chain` (reference: converter.rs:148-173) through the device.
+"""`maf2paf`, `maf2chain` and `paf2chain` (reference: converter.rs:29-92,
+148-173) through the device.
 
-The device branch of wgatools_tpu/tools/convert.py::paf2chain on PyTorch:
-op tables batch through chain_scan (kernel B's chain mode), the exclusive
-cumulative I/D tables every chain data line needs, and the host gathers the
-M-run boundaries and formats.  Header trims, the boundary gathers, the
-chain writer and the host branch are the TPU package's own host code, so
-both engines write the same bytes by construction.
+The device branches of wgatools_tpu/tools/convert.py on PyTorch:
+
+- `maf2paf` and `maf2chain`: MAF records batch through the run extraction
+  (ops.rle_device: kernel A or D counts, torch extracts), one batch in
+  flight, and the host formats PAF rows or chain blocks from each record's
+  run table;
+- `paf2chain`: op tables batch through chain_scan (kernel B's chain mode),
+  the exclusive cumulative I/D tables every chain data line needs, and the
+  host gathers the M-run boundaries and formats.
+
+Header trims, the boundary gathers, the PAF and chain writers and the host
+branches are the TPU package's own host code, so both engines write the
+same bytes by construction.
 """
 
 import torch
@@ -14,10 +22,109 @@ from wgatools_tpu import native
 from wgatools_tpu.core import cigar as C
 from wgatools_tpu.core.metrics import METRICS
 from wgatools_tpu.io.chain import chain_header_from_record, write_chain_record
-from wgatools_tpu.tools.convert import _chain_block_from_scan, _write_chain_from_ops
+from wgatools_tpu.io.paf import PafWriter
+from wgatools_tpu.tools.convert import (
+    _chain_block_from_scan,
+    _emit_chain,
+    _maf_ext_runs,
+    _paf_from_cigar,
+    _write_chain_from_ops,
+)
 
-from ..core.device import DEVICE_MIN_OPS
+from ..core.device import DEVICE_MIN_COLUMNS, DEVICE_MIN_OPS
+from ..ops.batch import DEFAULT_BATCH_COLUMNS, _PinnedUpload
+from ..ops.classify import pack_pairs
 from ..ops.liftover import chain_scan, int32_safe_record, pack_ops_batch
+from ..ops.rle_device import finish_runs, split_run_tables, start_runs
+
+
+def maf2paf(mafreader, writer, device, query_name=None):
+    """MAF -> PAF on `device`; batches below DEVICE_MIN_COLUMNS columns
+    are answered on the host, as in the TPU package."""
+    paf_writer = PafWriter(writer)
+
+    def emit(rec, _index, vals, lens):
+        cigar = C.cigar_from_runs(vals, lens, rec.is_negative)
+        paf_writer.write_record(_paf_from_cigar(rec, cigar))
+
+    _batched_ext_runs(mafreader, query_name, emit, device)
+    writer.flush()
+
+
+def maf2chain(mafreader, writer, device, query_name=None):
+    """MAF -> chain on `device`: chain ids count records in input order."""
+
+    def emit(rec, chain_id, vals, lens):
+        _emit_chain(writer, rec, chain_id, vals, lens)
+
+    _batched_ext_runs(mafreader, query_name, emit, device)
+    writer.flush()
+
+
+def _batched_ext_runs(mafreader, query_name, emit, device):
+    """Stream MAF records through the run extraction on `device`, calling
+    emit(record, index, run_vals, run_lens) in input order.
+
+    One batch in flight: start_runs uploads batch i+1 and launches its
+    statistics kernel before finish_runs waits for batch i, so the host
+    parses and packs while the device works.  A batch holds up to
+    DEFAULT_BATCH_COLUMNS padded columns; one of fewer than
+    DEVICE_MIN_COLUMNS columns is answered by the host engine."""
+    uploader = _PinnedUpload(device) if device.type == "cuda" else None
+    pending = []
+    max_len = 0
+    next_index = 0
+    in_flight = None  # (records, device state) or ("host", records)
+
+    def dispatch():
+        nonlocal max_len
+        if not pending:
+            return None
+        recs = list(pending)
+        pending.clear()
+        max_len = 0
+        total_cols = sum(len(r.target_seq) for r in recs)
+        if total_cols < DEVICE_MIN_COLUMNS:
+            return ("host", recs)
+        with METRICS.stage("pack", total_cols * 2):
+            t, q, lens = pack_pairs([(r.target_seq, r.query_seq) for r in recs])
+        return (recs, start_runs(t, q, lens, device, uploader=uploader))
+
+    def drain(batch):
+        nonlocal next_index
+        if batch[0] == "host":
+            for rec in batch[1]:
+                vals, lens = _maf_ext_runs(rec)
+                emit(rec, next_index, vals, lens)
+                next_index += 1
+            return
+        recs, state = batch
+        with METRICS.stage("device_rle"):
+            row_ids, cats, run_lens = finish_runs(state)
+        for rec, (vals, lens) in zip(
+            recs, split_run_tables(len(recs), row_ids, cats, run_lens)
+        ):
+            emit(rec, next_index, vals, lens)
+            next_index += 1
+
+    for record in mafreader.records():
+        if query_name is not None:
+            record.set_query_idx_byname(query_name)
+        n = len(record.target_seq)
+        new_max = max(max_len, n)
+        if pending and new_max * (len(pending) + 1) > DEFAULT_BATCH_COLUMNS:
+            nf = dispatch()
+            if in_flight is not None:
+                drain(in_flight)
+            in_flight = nf
+            new_max = n
+        max_len = new_max
+        pending.append(record)
+    nf = dispatch()
+    if in_flight is not None:
+        drain(in_flight)
+    if nf is not None:
+        drain(nf)
 
 
 def paf2chain(pafreader, writer, device):
