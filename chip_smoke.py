@@ -19,7 +19,17 @@ Builds the port's CUDA kernels from wgatools_tpu_torch/csrc/ and then:
 6. runs `call -s` on a ~40 Mbp MAF of four ~10 Mbp records whose widths
    are not multiples of 8, at the default chunk size (chunks grouped into
    one category-plane batch per record) and with `-c 16000000` (one [1, n]
-   byte-plane batch per record), against the host engine's bytes.
+   byte-plane batch per record), against the host engine's bytes;
+7. `sharded`: on a one-rank NCCL group (FileStore under build/), runs the
+   dryrun of the sharded layer, then every sharded function at full size
+   against the plain versions: column stats on byte-word and nibble
+   planes, kernel F and every mode of kernel C at bench.py's B=128 x 2^20
+   columns with 2^15 ops per row, the liftover scan, the pair merge,
+   coverage of a 2^28-position genome from 10^6 spans (all_reduce, and
+   reduce_scatter + carry) and the sequence-parallel scan of 8 rows x 2^22
+   ops.  One rank shows that the collectives run on NCCL and that the
+   shards' carries and merges are right when there is one shard; the
+   multi-rank semantics are held on the CPU with gloo (tests).
 
 Launch counts are reset before each tool phase and read after it: every
 kernel of that phase's path must have launched there.  With --profile,
@@ -64,6 +74,17 @@ PAF_RECORDS, PAF_RUNS = 100_000, 40
 CALL_ROW = 12_500_003
 BYTES_B, BYTES_L = 512, 131_073
 CALL_RECORDS, CALL_COLUMNS = 4, 10_000_003
+# the sharded phase: ops per row of the full-size op table, the coverage
+# genome and spans, the sequence-parallel scan's rows and ops
+SHARD_OPS = 1 << 15
+GENOME_LEN, N_SPANS = 1 << 28, 1_000_000
+SP_ROWS, SP_OPS = 8, 1 << 22
+# kernel C's modes besides bench.py's (catmode, raw sums): label, flags
+ADV16_MODES = (
+    ("pairs+odd", dict()),
+    ("pairs", dict(emit_odd=False)),
+    ("raw", dict(raw_sums=True)),
+)
 
 
 def log(msg):
@@ -165,13 +186,22 @@ def phase_kernels(rng, device, gates, times):
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    def bench_c(cw, lens, st, sq, caller=False):  # bench.py's kernel C
+        return classify_liftover_fused_adv16(cw, None, lens, st, sq, device,
+                                             caller, catmode=True,
+                                             raw_sums=True)
+
+    def bench_c_ref(cw, lens, st, sq, caller=False):
+        return classify_liftover_fused_adv16_ref(cw, None, lens, st, sq,
+                                                 caller, catmode=True,
+                                                 raw_sums=True)
+
     # kernel A at bench.py's batch
     B, L = BENCH_B, BENCH_L
     alphabet = np.frombuffer(b"ACGT-", dtype=np.uint8)
     t0 = alphabet[rng.integers(0, 5, size=(B, L))]
     q0 = alphabet[rng.integers(0, 5, size=(B, L))]
     cw_np = pack_cat_nibbles(t0, q0)
-    del t0, q0
     lens_np = (L - rng.integers(0, 4096, B)).astype(np.int32)
     lens_np[0] = L
     cw, lens = up(cw_np), up(lens_np)
@@ -244,12 +274,12 @@ def phase_kernels(rng, device, gates, times):
     for caller in (False, True):
         gates.check(
             "fused_adv16", f"B={B} L={L} NG={st.shape[1]} caller={caller}",
-            classify_liftover_fused_adv16(cw, lens, st, sq, device, caller),
-            classify_liftover_fused_adv16_ref(cw, lens, st, sq, caller),
+            bench_c(cw, lens, st, sq, caller),
+            bench_c_ref(cw, lens, st, sq, caller),
         )
     times["fused_adv16"] = (
-        time_ms(lambda: classify_liftover_fused_adv16(cw, lens, st, sq, device)),
-        time_ms(lambda: classify_liftover_fused_adv16_ref(cw, lens, st, sq),
+        time_ms(lambda: bench_c(cw, lens, st, sq)),
+        time_ms(lambda: bench_c_ref(cw, lens, st, sq),
                 reps=5),
     )
     # kernel C edge shapes: B2 != B both ways, B=1
@@ -258,8 +288,8 @@ def phase_kernels(rng, device, gates, times):
         e_sq = up(rng.integers(0, 1 << 16, size=(b2, ng)).astype(np.int32))
         gates.check(
             "fused_adv16", f"edge B={e_cw.shape[0]} B2={b2} NG={ng}",
-            classify_liftover_fused_adv16(e_cw, e_len, e_st, e_sq, device),
-            classify_liftover_fused_adv16_ref(e_cw, e_len, e_st, e_sq),
+            bench_c(e_cw, e_len, e_st, e_sq),
+            bench_c_ref(e_cw, e_len, e_st, e_sq),
         )
 
     # random shapes: arbitrary nibbles (codes the LUT never makes), lengths
@@ -279,9 +309,8 @@ def phase_kernels(rng, device, gates, times):
                         [classify_stat_cat_ref(f_cw, f_len, caller)])
             gates.check(
                 "fused_adv16", f"{label} B2={b2} NG={ng}",
-                classify_liftover_fused_adv16(f_cw, f_len, f_st, f_sq, device,
-                                              caller),
-                classify_liftover_fused_adv16_ref(f_cw, f_len, f_st, f_sq, caller),
+                bench_c(f_cw, f_len, f_st, f_sq, caller),
+                bench_c_ref(f_cw, f_len, f_st, f_sq, caller),
             )
         rows, n = int(rng.integers(1, 64)), int(rng.integers(1, 3000))
         f_ops = up(rng.integers(0, 256, (rows, n)).astype(np.uint8))
@@ -290,7 +319,10 @@ def phase_kernels(rng, device, gates, times):
             gates.check("liftover_scan", f"random {k} {rows}x{n} mode={name}",
                         fn(f_ops, f_lens), liftover_scan_ref(f_ops, f_lens, name))
     gate_classify_bytes(rng, device, gates, times)
-    return {"cw": cw, "lens": lens, "ops": bench_ops, "op_lens": bench_lens}
+    full = gate_plane_kernels(rng, device, gates, times, t0, q0, cw_np,
+                              lens_np)
+    return {"cw": cw, "lens": lens, "ops": bench_ops, "op_lens": bench_lens,
+            "full": full}
 
 
 def shifted(a, offset):
@@ -397,6 +429,264 @@ def gate_classify_bytes(rng, device, gates, times):
                         f"random {k} B={b} L={L} offset={offset} caller={caller}",
                         [classify_stat_bytes(t, q, n, caller)],
                         [classify_stat_bytes_ref(t, q, n, caller)])
+
+
+def plane_inputs(rng, t, q, cw, lens, op_rows, n_ops):
+    """Host inputs of the word, nibble and fused kernels: byte-word,
+    nibble and category planes of the same uint8 columns t, q, and an
+    [op_rows, n_ops] op table (M/=/X/I/D/S, lengths < 2^13, 8191 in column
+    0) with its packed16 words, adv16 pair words and group-8 sums."""
+    from wgatools_tpu_torch.ops.classify import pack_nibble_words
+    from wgatools_tpu_torch.ops.liftover import (
+        pack_ops_adv16,
+        pack_ops_sums,
+        pack_ops_words16,
+    )
+
+    ops = np.frombuffer(b"M=XIDS", np.uint8)[rng.integers(0, 6, (op_rows, n_ops))]
+    op_lens = rng.integers(0, 8192, (op_rows, n_ops)).astype(np.int32)
+    op_lens[:, 0] = 8191
+    host = {"tw": t.view("<i4"), "qw": q.view("<i4"), "cw": cw, "lens": lens,
+            "ops": ops, "op_lens": op_lens,
+            "opw16": pack_ops_words16(ops, op_lens)}
+    host["tn"], host["qn"] = pack_nibble_words(t, q)
+    host["wt"], host["wq"] = pack_ops_adv16(ops, op_lens)
+    host["st"], host["sq"] = pack_ops_sums(ops, op_lens, group=8)
+    return host
+
+
+def gate_plane_kernels(rng, device, gates, times, t0, q0, cw_np, lens_np):
+    """The word entry of kernel D, kernel E, kernel F and every mode of
+    kernel C at bench.py's batch (byte-word planes 2 x 128 MiB, nibble
+    planes 2 x 64 MiB, 2^15 ops per row) and at edge and random shapes, in
+    both modes, with times.  Returns the full-size host inputs."""
+    import torch
+
+    from wgatools_tpu_torch.ops import classify as C
+    from wgatools_tpu_torch.ops import fused as F
+
+    def up(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(device)
+
+    host = plane_inputs(rng, t0, q0, cw_np, lens_np, t0.shape[0], SHARD_OPS)
+    d = {k: up(v) for k, v in host.items()}
+    B, L = t0.shape
+    planes = {"words": (d["tw"], d["qw"]), "nibble": (d["tn"], d["qn"]),
+              "cat": (d["cw"], None)}
+    stats_fn = {"words": (C.classify_stat_words, C.classify_stat_words_ref),
+                "nibble": (C.classify_stat_nibbles, C.classify_stat_nibbles_ref)}
+    kernel = {"words": "classify_words", "nibble": "classify_nibbles"}
+
+    def gate_all(label, planes, lens, opw, wt, wq, st, sq):
+        for caller in (False, True):
+            tag = f"{label} caller={caller}"
+            for kind, (fn, ref) in stats_fn.items():
+                gates.check(kernel[kind], tag, [fn(*planes[kind], lens, caller)],
+                            [ref(*planes[kind], lens, caller)])
+                nib = kind == "nibble"
+                gates.check(
+                    "fused16", f"{kind} {tag}",
+                    F.classify_liftover_fused16(*planes[kind], lens, opw, device,
+                                                caller, nibble=nib),
+                    F.classify_liftover_fused16_ref(*planes[kind], lens, opw,
+                                                    caller, nib),
+                )
+            for kind, pl in planes.items():
+                for mode, flags in ADV16_MODES:
+                    words = (st, sq) if flags.get("raw_sums") else (wt, wq)
+                    flags = dict(flags, nibble=kind == "nibble",
+                                 catmode=kind == "cat")
+                    gates.check(
+                        "fused_adv16", f"{kind} {mode} {tag}",
+                        F.classify_liftover_fused_adv16(
+                            *pl, lens, *words, device, caller, **flags),
+                        F.classify_liftover_fused_adv16_ref(
+                            *pl, lens, *words, caller, **flags),
+                    )
+
+    gate_all(f"B={B} L={L} ops={SHARD_OPS}", planes, d["lens"], d["opw16"],
+             d["wt"], d["wq"], d["st"], d["sq"])
+    for kind, (fn, ref) in stats_fn.items():
+        times[kernel[kind]] = (
+            time_ms(lambda: fn(*planes[kind], d["lens"])),
+            time_ms(lambda: ref(*planes[kind], d["lens"]), reps=5),
+        )
+    times["fused16"] = (
+        time_ms(lambda: F.classify_liftover_fused16(
+            *planes["nibble"], d["lens"], d["opw16"], device, nibble=True)),
+        time_ms(lambda: F.classify_liftover_fused16_ref(
+            *planes["nibble"], d["lens"], d["opw16"], nibble=True), reps=5),
+    )
+    ms = time_ms(lambda: F.classify_liftover_fused16(
+        *planes["words"], d["lens"], d["opw16"], device))
+    log(f"fused16 words B={B} L={L}: kernel {ms:.5f} ms")
+    for kind, pl in planes.items():
+        for mode, flags in ADV16_MODES:
+            words = (d["st"], d["sq"]) if flags.get("raw_sums") else (d["wt"], d["wq"])
+            flags = dict(flags, nibble=kind == "nibble", catmode=kind == "cat")
+            ms = time_ms(lambda: F.classify_liftover_fused_adv16(
+                *pl, d["lens"], *words, device, **flags))
+            log(f"fused_adv16 {kind} {mode} B={B} L={L}: kernel {ms:.5f} ms")
+    for name, (ms, plain) in times.items():
+        if name in ("classify_words", "classify_nibbles", "fused16"):
+            log(f"{name} B={B} L={L}: kernel {ms:.5f} ms, plain {plain:.5f} ms")
+    del planes, d
+
+    # edge shapes: lengths 0 and ending mid-word, B=1, odd B, rows past 16K
+    # columns, all-gap rows; B2 below and above B, odd op counts
+    nib_alphabet = np.frombuffer(b"ACGTNacgtn.-", np.uint8)
+    for lengths, n_ops in (([0, 1, 7, 8, 9, 777, 999, 1000, 1000], 5),
+                           ([17], 2001), ([40_000, 0, 16_385, 16_384, 3], 64)):
+        pairs = []
+        for k, n in enumerate(lengths):
+            t = nib_alphabet[rng.integers(0, len(nib_alphabet), n)]
+            q = t.copy()
+            flip = rng.random(n) < 0.3
+            q[flip] = nib_alphabet[rng.integers(0, len(nib_alphabet),
+                                                int(flip.sum()))]
+            if k == len(lengths) - 2:
+                t[:], q[:] = ord("-"), ord("-")
+            pairs.append((t.tobytes(), q.tobytes()))
+        t, q, ln = C.pack_pairs(pairs, align=8)
+        b2 = int(rng.integers(1, 2 * len(lengths) + 2))
+        e = {k: up(v) for k, v in plane_inputs(
+            rng, t, q, C.pack_cat_nibbles(t, q), ln, b2, n_ops).items()}
+        gate_all(f"edge B={len(lengths)} L={t.shape[1]} B2={b2} N={n_ops}",
+                 {"words": (e["tw"], e["qw"]), "nibble": (e["tn"], e["qn"]),
+                  "cat": (e["cw"], None)},
+                 e["lens"], e["opw16"], e["wt"], e["wq"], e["st"], e["sq"])
+
+    # random shapes: arbitrary words (nibble codes the dictionary never
+    # makes, any bytes), lengths below 0 and past the row, arbitrary op
+    # words (bit 31 set half the time)
+    def words(*shape):
+        return up(rng.integers(0, 1 << 32, shape, dtype=np.uint64)
+                  .astype(np.uint32).view(np.int32))
+
+    for k in range(6):
+        b, lw = int(rng.integers(1, 200)), int(rng.integers(1, 5000))
+        b2, noh = int(rng.integers(1, 200)), int(rng.integers(1, 3000))
+        r_planes = {"words": (words(b, lw), words(b, lw)),
+                    "nibble": (words(b, lw), words(b, lw)),
+                    "cat": (words(b, lw), None)}
+        r_len = up(rng.integers(-8, 8 * lw + 16, b).astype(np.int32))
+        gate_all(f"random {k} B={b} LW={lw} B2={b2} NOH={noh}", r_planes,
+                 r_len, words(b2, noh), words(b2, noh), words(b2, noh),
+                 words(b2, noh), words(b2, noh))
+    return host
+
+
+def phase_sharded(work, device, rng, gates, host):
+    """Phase 7: the sharded layer on a one-rank NCCL group: the dryrun,
+    then every sharded function at full size against the plain versions."""
+    import torch
+
+    from wgatools_tpu_torch.ops import classify as C
+    from wgatools_tpu_torch.ops import fused as F
+    from wgatools_tpu_torch.ops.liftover import liftover_scan_ref
+    from wgatools_tpu_torch.parallel import mesh as M
+    from wgatools_tpu_torch.parallel.dist_tools import replicate_rows
+    from wgatools_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    store = os.path.join(work, "nccl.store")
+    if os.path.exists(store):
+        os.remove(store)
+    with M.record_group("nccl", store, 0, 1, device) as group:
+        t0 = time.perf_counter()
+        dryrun_multichip(group)
+        log(f"sharded: dryrun ok in {time.perf_counter() - t0:.3f} s")
+
+        t0 = time.perf_counter()
+        d = {k: M.shard_rows(group, v) for k, v in host.items()}
+        lens = d["lens"]
+        planes = {"words": (d["tw"], d["qw"]), "nibble": (d["tn"], d["qn"]),
+                  "cat": (d["cw"], None)}
+        refs = {"words": C.classify_stat_words_ref,
+                "nibble": C.classify_stat_nibbles_ref}
+        kernel = {"words": "classify_words", "nibble": "classify_nibbles"}
+        for caller in (False, True):
+            for kind, ref in refs.items():
+                nib = kind == "nibble"
+                gates.check(
+                    kernel[kind], f"sharded_column_stats caller={caller}",
+                    [M.sharded_column_stats(group, *planes[kind], lens, caller,
+                                            nibble=nib)],
+                    [ref(*planes[kind], lens, caller)],
+                )
+                gates.check(
+                    "fused16", f"sharded_fused16 {kind} caller={caller}",
+                    M.sharded_fused16(group, *planes[kind], lens, d["opw16"],
+                                      nibble=nib, caller=caller),
+                    F.classify_liftover_fused16_ref(*planes[kind], lens,
+                                                    d["opw16"], caller, nib),
+                )
+            for kind, pl in planes.items():
+                for mode, flags in ADV16_MODES:
+                    words = ((d["st"], d["sq"]) if flags.get("raw_sums")
+                             else (d["wt"], d["wq"]))
+                    flags = dict(flags, nibble=kind == "nibble",
+                                 catmode=kind == "cat")
+                    gates.check(
+                        "fused_adv16",
+                        f"sharded_fused_adv16 {kind} {mode} caller={caller}",
+                        M.sharded_fused_adv16(group, *pl, lens, *words,
+                                              caller=caller, **flags),
+                        F.classify_liftover_fused_adv16_ref(
+                            *pl, lens, *words, caller, **flags),
+                    )
+        gates.check("liftover_scan", "sharded_liftover",
+                    M.sharded_liftover(group, d["ops"], d["op_lens"]),
+                    liftover_scan_ref(d["ops"], d["op_lens"]))
+        stats = M.sharded_column_stats(group, *planes["words"], lens)
+        ids = np.arange(stats.shape[0], dtype=np.int32) % 7
+        want = np.zeros((7, 8), np.int64)
+        np.add.at(want, ids, stats.cpu().numpy())
+        table = M.sharded_pair_reduce(group, stats, M.shard_rows(group, ids), 7)
+        if not np.array_equal(table.cpu().numpy(), want):
+            raise AssertionError("sharded_pair_reduce differs from np.add.at")
+        log(f"sharded: stats, fused16, fused_adv16, liftover and the pair "
+            f"merge at full size ok in {time.perf_counter() - t0:.3f} s")
+        del d, planes, stats
+
+        t0 = time.perf_counter()
+        starts = rng.integers(0, GENOME_LEN, N_SPANS).astype(np.int32)
+        ends = np.minimum(starts + rng.integers(1, 100_000, N_SPANS),
+                          GENOME_LEN).astype(np.int32)
+        starts[:100] = -1  # padding spans add nothing
+        s, e = M.shard_rows(group, starts), M.shard_rows(group, ends)
+        real = s >= 0
+        plain = torch.cumsum(
+            torch.bincount(s[real].long(), minlength=GENOME_LEN + 1)
+            - torch.bincount(e[real].long(), minlength=GENOME_LEN + 1), 0,
+        )[:GENOME_LEN]
+        for label, cov in (
+            ("sharded_coverage", M.sharded_coverage(group, s, e, GENOME_LEN)),
+            ("sharded_coverage_scatter",
+             M.sharded_coverage_scatter(group, s, e, GENOME_LEN)),
+            ("sharded_coverage_scatter trim=False",
+             M.sharded_coverage_scatter(group, s, e, GENOME_LEN,
+                                        trim=False)[:GENOME_LEN]),
+        ):
+            if cov.dtype != torch.int32 or not torch.equal(cov.long(), plain):
+                raise AssertionError(f"{label} differs from the plain coverage")
+        del plain
+        log(f"sharded: coverage of {GENOME_LEN} positions from {N_SPANS} "
+            f"spans ok in {time.perf_counter() - t0:.3f} s")
+
+        t0 = time.perf_counter()
+        sp_ops = np.frombuffer(b"M=XIDS", np.uint8)[
+            rng.integers(0, 6, (SP_ROWS, SP_OPS))]
+        sp_lens = rng.integers(0, 256, (SP_ROWS, SP_OPS)).astype(np.int32)
+        o = M.shard_rows(group, sp_ops, axis=1)
+        ln = M.shard_rows(group, sp_lens, axis=1)
+        gates.check("liftover_scan", f"sharded_liftover_sp {SP_ROWS}x{SP_OPS}",
+                    M.sharded_liftover_sp(group, o, ln), liftover_scan_ref(o, ln))
+        rows = replicate_rows(group, np.arange(16, dtype=np.uint8))
+        if not np.array_equal(rows, np.arange(16, dtype=np.uint8)[None]):
+            raise AssertionError("replicate_rows")
+        log(f"sharded: sequence-parallel scan and row merge ok in "
+            f"{time.perf_counter() - t0:.3f} s")
 
 
 def write_maf(path, corpus, rng, n_records, n_cols):
@@ -506,7 +796,8 @@ def phase_fused(device, bench):
     wt, wq = pack_ops_adv16(ops, op_lens)
     t0 = time.perf_counter()
     stats, ta, qa = classify_liftover_fused_adv16(
-        bench["cw"], bench["lens"], st, sq, device
+        bench["cw"], None, bench["lens"], st, sq, device, catmode=True,
+        raw_sums=True,
     )
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -755,6 +1046,10 @@ def main():
             ("call", lambda: phase_call(work, rng, None), ["classify_cat"]),
             ("call -c 16000000", lambda: phase_call(work, rng, 16_000_000),
              ["classify_bytes"]),
+            ("sharded", lambda: phase_sharded(work, device, rng, gates,
+                                              bench["full"]),
+             ["classify_words", "classify_nibbles", "fused16", "fused_adv16",
+              "classify_bytes", "liftover_scan"]),
         ):
             _build.reset_launches()
             t0 = time.perf_counter()
@@ -781,6 +1076,10 @@ def main():
         ("classify_bytes", "classify_bytes.cu", "wgatools_tpu/ops/classify.py:247"),
         ("liftover_scan", "liftover_scan.cu", "wgatools_tpu/ops/liftover.py:266"),
         ("fused_adv16", "fused_adv16.cu", "wgatools_tpu/ops/fused.py:662"),
+        ("classify_words", "classify_bytes.cu", "wgatools_tpu/ops/classify.py:545"),
+        ("classify_nibbles", "classify_nibbles.cu",
+         "wgatools_tpu/ops/classify.py:825"),
+        ("fused16", "fused16.cu", "wgatools_tpu/ops/fused.py:534"),
     ]
     print(json.dumps({"kernels": [
         {

@@ -55,7 +55,8 @@ def test_fused_ref_matches_jax(n_rows, n_op_rows, n_ops, caller):
         jnp.asarray(sq), tile_b=2, tile_lw=32, interpret=True, caller=caller,
         catmode=True, scan_mode="once", raw_sums=True,
     )
-    got = T.classify_liftover_fused_adv16(cw, lens, st, sq, CPU, caller)
+    got = T.classify_liftover_fused_adv16(cw, None, lens, st, sq, CPU, caller,
+                                          catmode=True, raw_sums=True)
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         assert g.dtype == torch.int32
@@ -68,7 +69,8 @@ def test_fused_anchors_expand_to_the_full_scan():
     cw, lens, ops, op_lens = _inputs(7, 4, 6, 333)
     st, sq = pack_ops_sums(ops, op_lens, group=8)
     wt, wq = pack_ops_adv16(ops, op_lens)
-    _, ta, qa = T.classify_liftover_fused_adv16(cw, lens, st, sq, CPU)
+    _, ta, qa = T.classify_liftover_fused_adv16(cw, None, lens, st, sq, CPU,
+                                                catmode=True, raw_sums=True)
     want_t, want_q = _liftover_scan_impl(ops, op_lens, False, False)
     for anchors, w, want in ((ta, wt, want_t), (qa, wq, want_q)):
         even = expand_group_prefix(anchors.numpy(), w, group=8)
@@ -79,9 +81,9 @@ def test_fused_anchors_expand_to_the_full_scan():
 def test_fused_takes_tensors_and_numpy_alike():
     cw, lens, ops, op_lens = _inputs(11, 3, 3, 40)
     st, sq = pack_ops_sums(ops, op_lens, group=8)
-    a = T.classify_liftover_fused_adv16(cw, lens, st, sq, CPU)
-    b = T.classify_liftover_fused_adv16(
-        *(torch.from_numpy(x) for x in (cw, lens, st, sq)), CPU
-    )
+    flags = dict(catmode=True, raw_sums=True)
+    a = T.classify_liftover_fused_adv16(cw, None, lens, st, sq, CPU, **flags)
+    cw, lens, st, sq = (torch.from_numpy(x) for x in (cw, lens, st, sq))
+    b = T.classify_liftover_fused_adv16(cw, None, lens, st, sq, CPU, **flags)
     for x, y in zip(a, b):
         assert torch.equal(x, y)

@@ -30,19 +30,28 @@ constexpr int SCAN_THREADS = 128;
 
 template <bool CHAIN>
 struct OpAdvance {
+  using Elem = wga::Adv2;
   const uint8_t* ops;
   const int* lens;
-  __device__ __forceinline__ void operator()(long long i, uint32_t& at,
-                                             uint32_t& aq) const {
+  int* t_off;
+  int* q_off;
+  __device__ __forceinline__ Elem load(long long i) const {
     const uint8_t op = ops[i];
     const uint32_t len = static_cast<uint32_t>(lens[i]);
+    Elem e;
     if (CHAIN) {
-      at = op == 'I' ? len : 0u;
-      aq = op == 'D' ? len : 0u;
+      e.t = op == 'I' ? len : 0u;
+      e.q = op == 'D' ? len : 0u;
     } else {
-      at = (op == 0 || op == 'I' || op == 'S') ? 0u : len;
-      aq = (op == 0 || op == 'D') ? 0u : len;
+      e.t = (op == 0 || op == 'I' || op == 'S') ? 0u : len;
+      e.q = (op == 0 || op == 'D') ? 0u : len;
     }
+    return e;
+  }
+  __device__ __forceinline__ void store(long long i, const Elem&,
+                                        uint32_t ex_t, uint32_t ex_q) const {
+    t_off[i] = static_cast<int>(ex_t);
+    q_off[i] = static_cast<int>(ex_q);
   }
 };
 
@@ -51,8 +60,9 @@ __global__ void __launch_bounds__(SCAN_THREADS) liftover_scan_kernel(
     const uint8_t* __restrict__ ops, const int* __restrict__ lens,
     int* __restrict__ t_off, int* __restrict__ q_off, long long N) {
   const long long row = blockIdx.x;
-  const OpAdvance<CHAIN> adv{ops + row * N, lens + row * N};
-  wga::block_exclusive_scan2(adv, N, t_off + row * N, q_off + row * N);
+  const OpAdvance<CHAIN> adv{ops + row * N, lens + row * N, t_off + row * N,
+                             q_off + row * N};
+  wga::block_exclusive_scan2(adv, N);
 }
 
 }  // namespace

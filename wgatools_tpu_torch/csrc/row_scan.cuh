@@ -1,6 +1,6 @@
 // Exclusive int32 scan of two streams along one row, by one thread block:
 // the device code shared by kernel B (liftover_scan.cu) and the op-row
-// blocks of kernel C (fused_adv16.cu).
+// blocks of the fused kernels C and F (fused.cuh).
 //
 // The block walks the row in tiles of blockDim.x elements and carries the
 // running totals in registers (the TPU kernels carried them in a scratch
@@ -16,13 +16,18 @@
 
 namespace wga {
 
-// adv(i, at, aq) gives the two advances of element i; out_t[i] and
-// out_q[i] receive the sums of the advances before it.  blockDim.x must
-// be a multiple of 32 and every thread of the block must call this.
-template <class Adv>
-__device__ __forceinline__ void block_exclusive_scan2(
-    const Adv& adv, long long n, int* __restrict__ out_t,
-    int* __restrict__ out_q) {
+// The two advances of one element, and whatever else its store needs.
+struct Adv2 {
+  uint32_t t = 0, q = 0;
+};
+
+// ops.load(i) gives element i's advances as an Elem (Adv2 or a struct
+// with the same t and q members); ops.store(i, elem, ex_t, ex_q) receives
+// the sums of the advances before it.  blockDim.x must be a multiple of 32
+// and every thread of the block must call this.
+template <class Ops>
+__device__ __forceinline__ void block_exclusive_scan2(const Ops& ops,
+                                                      long long n) {
   __shared__ uint32_t warp_t[32], warp_q[32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -30,9 +35,9 @@ __device__ __forceinline__ void block_exclusive_scan2(
   uint32_t carry_t = 0, carry_q = 0;
   for (long long base = 0; base < n; base += blockDim.x) {
     const long long i = base + threadIdx.x;
-    uint32_t at = 0, aq = 0;
-    if (i < n) adv(i, at, aq);
-    uint32_t st = at, sq = aq;
+    typename Ops::Elem e{};
+    if (i < n) e = ops.load(i);
+    uint32_t st = e.t, sq = e.q;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const uint32_t yt = __shfl_up_sync(0xffffffffu, st, d);
@@ -58,8 +63,7 @@ __device__ __forceinline__ void block_exclusive_scan2(
       tot_q += b;
     }
     if (i < n) {
-      out_t[i] = static_cast<int>(carry_t + pre_t + st - at);
-      out_q[i] = static_cast<int>(carry_q + pre_q + sq - aq);
+      ops.store(i, e, carry_t + pre_t + st - e.t, carry_q + pre_q + sq - e.q);
     }
     carry_t += tot_t;
     carry_q += tot_q;

@@ -41,8 +41,11 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "classify_cat": [_P, _P, _P, _I, _LL, _I],
     "classify_bytes": [_P, _P, _P, _P, _I, _LL, _I],
+    "classify_words": [_P, _P, _P, _P, _I, _LL, _I],
+    "classify_nibbles": [_P, _P, _P, _P, _I, _LL, _I],
     "liftover_scan": [_P, _P, _P, _P, _I, _LL, _I],
-    "fused_adv16": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _LL, _I],
+    "fused_adv16": [_I, *[_P] * 10, _I, _LL, _I, _LL, _I, _I, _I],
+    "fused16": [_I, *[_P] * 9, _I, _LL, _I, _LL, _I],
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}

@@ -17,9 +17,9 @@ package's bf16-limb matmul scans and their `wide` switch were workarounds
 for the TPU's matrix unit and have no counterpart here: int32 sums are exact
 for any op length.
 
-The numpy packers below (pack_ops_adv16, pack_ops_sums, expand_group_prefix,
-...) are the host side of the fused kernel's group-sum path and match the
-TPU package's byte for byte.
+The numpy packers below (pack_ops_words16, pack_ops_adv16, pack_ops_sums,
+expand_group_prefix, ...) are the host side of the fused kernels' op words
+and match the TPU package's byte for byte.
 """
 
 import numpy as np
@@ -172,6 +172,17 @@ def _host_advances(ops, lens, who, pad_to):
         (cls == ADV_BOTH) | (cls == ADV_I) | (cls == ADV_S), lens, 0
     )
     return adv_t, adv_q
+
+
+def pack_ops_words16(ops, lens):
+    """TWO ops per int32, for the fused kernel F: [0:13) len0, [13:16)
+    cls0, [16:29) len1, [29:32) cls1, with the advance classes above.  Every
+    length < 2^13, ops in M/=/X/I/S/D (ValueError otherwise: an unknown op
+    would pack to the padding class and advance nothing); N is padded to
+    even.  Returns int32 [B, ceil(N/2)]; a cls1 of D sets bit 31."""
+    ops, lens = _validate_pack16(ops, lens, "pack_ops_words16", pad_to=2)
+    half = (_ADV_CLASS[ops] << 13) | lens.astype(np.int32)
+    return half[:, 0::2] | (half[:, 1::2] << 16)
 
 
 def pack_ops_adv16(ops, lens):
