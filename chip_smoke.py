@@ -20,7 +20,16 @@ Builds the port's CUDA kernels from wgatools_tpu_torch/csrc/ and then:
    are not multiples of 8, at the default chunk size (chunks grouped into
    one category-plane batch per record) and with `-c 16000000` (one [1, n]
    byte-plane batch per record), against the host engine's bytes;
-7. `sharded`: on a one-rank NCCL group (FileStore under build/), runs the
+7. `pafcov`, `stat -f paf` (with and without -e), `validate` (plain and
+   with `-f FIXED`) and `chain2paf` through the port's command line: pafcov
+   on the paf2chain PAF (8 targets of 3.1 Mbp, ~24.8 M BED lines), stat and
+   validate on a copy of it with every 7th query end one too far and every
+   11th target end one short, chain2paf on the chain phase 3 wrote; the
+   bytes (compared by size and SHA-256) against the host engine's;
+8. `fused_ops`: kernel 8 (classify_liftover_fused, which no tool calls)
+   through its public op at bench.py's shape in both op forms, against the
+   plain word stats and the plain full liftover scan;
+9. `sharded`: on a one-rank NCCL group (FileStore under build/), runs the
    dryrun of the sharded layer, then every sharded function at full size
    against the plain versions: column stats on byte-word and nibble
    planes, kernel F and every mode of kernel C at bench.py's B=128 x 2^20
@@ -33,7 +42,8 @@ Builds the port's CUDA kernels from wgatools_tpu_torch/csrc/ and then:
 
 Launch counts are reset before each tool phase and read after it: every
 kernel of that phase's path must have launched there.  With --profile,
-`stat`, `paf2chain`, `maf2paf` and both `call` runs then run once more
+`stat`, `paf2chain`, `maf2paf`, both `call` runs, `pafcov` and `validate`
+then run once more
 under torch.profiler and cProfile, with a summary printed and the tables
 written to DIR/profile.txt.  The reference for the tool bytes is the TPU
 package's jax-free host engine, which shares the output formatting code
@@ -321,6 +331,7 @@ def phase_kernels(rng, device, gates, times):
     gate_classify_bytes(rng, device, gates, times)
     full = gate_plane_kernels(rng, device, gates, times, t0, q0, cw_np,
                               lens_np)
+    gate_fused_ops(rng, device, gates, times, full)
     return {"cw": cw, "lens": lens, "ops": bench_ops, "op_lens": bench_lens,
             "full": full}
 
@@ -577,6 +588,104 @@ def gate_plane_kernels(rng, device, gates, times, t0, q0, cw_np, lens_np):
     return host
 
 
+def gate_fused_ops(rng, device, gates, times, full):
+    """Kernel 8 in both op forms (uint8 ops + int32 lens, packed words) at
+    bench.py's batch (byte-word planes 2 x 128 MiB, 2^15 ops per row) and
+    at edge and random shapes, in both modes, with times."""
+    import torch
+
+    from wgatools_tpu_torch.ops import fused as F
+    from wgatools_tpu_torch.ops.liftover import pack_ops_words
+
+    def up(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(device)
+
+    def gate(label, tw, qw, lens, ops, op_lens):
+        for caller in (False, True):
+            gates.check(
+                "fused_ops", f"{label} caller={caller}",
+                F.classify_liftover_fused(tw, qw, lens, ops, op_lens, device,
+                                          caller),
+                F.classify_liftover_fused_ref(tw, qw, lens, ops, op_lens,
+                                              caller),
+            )
+
+    def op_table(b2, n_ops, op_bytes, max_len):
+        ops = op_bytes[rng.integers(0, len(op_bytes), (b2, n_ops))]
+        ops[np.arange(n_ops)[None, :]
+            >= rng.integers(0, n_ops + 1, b2)[:, None]] = 0
+        lens = rng.integers(0, max_len, (b2, n_ops), dtype=np.int64)
+        lens[ops == 0] = 0
+        return ops.astype(np.uint8), lens.astype(np.int32)
+
+    def words(*shape):
+        return rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(
+            np.uint32).view(np.int32)
+
+    d = {k: up(full[k]) for k in ("tw", "qw", "lens", "ops", "op_lens")}
+    d["opw"] = up(pack_ops_words(full["ops"], full["op_lens"]))
+    B, LW = d["tw"].shape
+    n_ops = d["ops"].shape[1]
+    label = f"B={B} L={4 * LW} ops={n_ops}"
+    gate(f"{label} u8+i32", d["tw"], d["qw"], d["lens"], d["ops"],
+         d["op_lens"])
+    gate(f"{label} packed", d["tw"], d["qw"], d["lens"], d["opw"], None)
+    times["fused_ops"] = (
+        time_ms(lambda: F.classify_liftover_fused(
+            d["tw"], d["qw"], d["lens"], d["ops"], d["op_lens"], device)),
+        time_ms(lambda: F.classify_liftover_fused_ref(
+            d["tw"], d["qw"], d["lens"], d["ops"], d["op_lens"]), reps=5),
+    )
+    packed_ms = (
+        time_ms(lambda: F.classify_liftover_fused(
+            d["tw"], d["qw"], d["lens"], d["opw"], None, device)),
+        time_ms(lambda: F.classify_liftover_fused_ref(
+            d["tw"], d["qw"], d["lens"], d["opw"], None), reps=5),
+    )
+    log(f"fused_ops {label} u8+i32: kernel {times['fused_ops'][0]:.5f} ms, "
+        f"plain {times['fused_ops'][1]:.5f} ms")
+    log(f"fused_ops {label} packed: kernel {packed_ms[0]:.5f} ms, plain "
+        f"{packed_ms[1]:.5f} ms")
+    del d
+
+    # edge shapes: B != B2 both ways, B2 = 0, NO = 0 and NO not a multiple
+    # of 128, LW not a multiple of any tile, lengths below the row and
+    # past it, op bytes that are not CIGAR ops, lengths up to 2^31 - 1
+    # (the u8 form's row sums wrap)
+    alphabet = np.frombuffer(b"ACGT-NRY", np.uint8)
+    any_byte = np.arange(256, dtype=np.uint8)
+    cigar = np.frombuffer(b"M=XIDS", np.uint8)
+    for b, lw, b2, n, op_bytes, max_len in (
+        (9, 1001, 3, 1000, cigar, 1 << 16),
+        (3, 257, 13, 129, any_byte, 1 << 16),
+        (5, 64, 0, 77, cigar, 1 << 16),
+        (1, 3, 7, 0, cigar, 1 << 16),
+        (4, 4099, 4, 3333, cigar, 2**31),
+        (17, 999, 5, 250, any_byte, 2**31),
+    ):
+        planes = alphabet[rng.integers(0, len(alphabet), (2, b, 4 * lw))]
+        lens = rng.integers(-4, 4 * lw + 9, b).astype(np.int32)
+        tw, qw = (up(p.view("<i4")) for p in planes)
+        ops, op_lens = op_table(b2, n, op_bytes, max_len)
+        label = f"edge B={b} LW={lw} B2={b2} NO={n} max_len={max_len}"
+        gate(f"{label} u8+i32", tw, qw, up(lens), up(ops), up(op_lens))
+        if max_len <= 1 << 16:
+            gate(f"{label} packed", tw, qw, up(lens),
+                 up(pack_ops_words(ops, op_lens)), None)
+    # random shapes: arbitrary plane words, random int32 packed words (half
+    # of them negative), any op bytes with lengths up to 2^31 - 1
+    for k in range(6):
+        b, lw = int(rng.integers(1, 200)), int(rng.integers(1, 5000))
+        b2, n = int(rng.integers(1, 200)), int(rng.integers(1, 3000))
+        tw, qw = up(words(b, lw)), up(words(b, lw))
+        lens = up(rng.integers(-8, 4 * lw + 16, b).astype(np.int32))
+        label = f"random {k} B={b} LW={lw} B2={b2} NO={n}"
+        gate(f"{label} packed", tw, qw, lens, up(words(b2, n)), None)
+        ops, op_lens = op_table(b2, n, any_byte, 2**31)
+        gate(f"{label} u8+i32", tw, qw, lens, up(ops), up(op_lens))
+
+
 def phase_sharded(work, device, rng, gates, host):
     """Phase 7: the sharded layer on a one-rank NCCL group: the dryrun,
     then every sharded function at full size against the plain versions."""
@@ -774,6 +883,157 @@ def phase_paf2chain(work, corpus, rng):
         f"host engine {host_secs:.3f} s")
 
 
+def file_digest(path):
+    """(size, SHA-256) of a file, read in 64 MiB pieces."""
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 26), b""):
+            h.update(block)
+    return os.path.getsize(path), h.hexdigest()
+
+
+def compare_with_host(name, got_paths, host_fn, secs):
+    """Run host_fn(paths) (the host engine writing to files beside each
+    port output), then compare every pair of files by size and SHA-256."""
+    want_paths = [p + ".host" for p in got_paths]
+    t0 = time.perf_counter()
+    host_fn(want_paths)
+    host_secs = time.perf_counter() - t0
+    sizes = []
+    for got, want in zip(got_paths, want_paths):
+        g, w = file_digest(got), file_digest(want)
+        if g != w:
+            raise AssertionError(f"{name}: {os.path.basename(got)} differs "
+                                 f"from the host engine ({g} != {w})")
+        sizes.append(g[0])
+        os.remove(want)
+    log(f"{name}: ok, {' + '.join(map(str, sizes))} B identical; port "
+        f"{secs:.3f} s, host engine {host_secs:.3f} s")
+
+
+def phase_pafcov(work):
+    """`pafcov` on the paf2chain PAF (8 targets of 3.1 Mbp: ~24.8 M BED
+    lines) against the host engine's bytes."""
+    from wgatools_tpu.io.compression import open_input, open_output
+    from wgatools_tpu.io.paf import PafReader
+    from wgatools_tpu.tools.pafcov import pafcov as host_pafcov
+
+    paf = os.path.join(work, "smoke.paf")
+    out = os.path.join(work, "smoke.cov.bed")
+    secs = run_cli(["pafcov", paf, "-o", out, "-r"])
+    compare_with_host("pafcov", [out], lambda w: host_pafcov(
+        PafReader(open_input(paf)), open_output(w[0], True), device=False),
+        secs)
+    os.remove(out)
+
+
+def write_bad_paf(work):
+    """A copy of the paf2chain PAF whose every 7th record's query end is
+    one past its CIGAR's and every 11th record's target end one short."""
+    src, bad = os.path.join(work, "smoke.paf"), os.path.join(work, "bad.paf")
+    with open(src) as f, open(bad, "w") as g:
+        for i, line in enumerate(f):
+            fields = line.split("\t")
+            if i % 7 == 0:
+                fields[3] = str(int(fields[3]) + 1)
+            if i % 11 == 0:
+                fields[8] = str(int(fields[8]) - 1)
+            g.write("\t".join(fields))
+    return bad
+
+
+def phase_stat_paf(work):
+    """`stat -f paf` and `stat -f paf -e` on the altered copy of the
+    paf2chain PAF against the host engine's bytes."""
+    from wgatools_tpu.io.compression import open_input, open_output
+    from wgatools_tpu.io.paf import PafReader
+    from wgatools_tpu.tools.stat import stat_paf as host_stat_paf
+
+    bad = write_bad_paf(work)
+    for each in (False, True):
+        out = os.path.join(work, f"paf_stat{'_each' if each else ''}.tsv")
+        secs = run_cli(["stat", "-f", "paf", bad, "-o", out, "-r"]
+                       + (["-e"] if each else []))
+        compare_with_host(f"stat -f paf each={each}", [out], lambda w:
+                          host_stat_paf(PafReader(open_input(bad)),
+                                        open_output(w[0], True), each,
+                                        device=False), secs)
+
+
+def phase_validate(work):
+    """`validate` and `validate -f FIXED` on the altered copy of the
+    paf2chain PAF (written by phase_stat_paf) against the host engine's
+    bytes."""
+    from wgatools_tpu.io.compression import open_input, open_output
+    from wgatools_tpu.io.paf import PafReader
+    from wgatools_tpu.tools.validate import validate_paf as host_validate
+
+    bad = os.path.join(work, "bad.paf")
+    report = os.path.join(work, "validate.txt")
+    secs = run_cli(["validate", bad, "-o", report, "-r"])
+    compare_with_host("validate", [report], lambda w: host_validate(
+        PafReader(open_input(bad)), open_output(w[0], True), device=False),
+        secs)
+    fixed = os.path.join(work, "fixed.paf")
+    secs = run_cli(["validate", bad, "-o", report, "-r", "-f", fixed])
+    with open(report) as f:
+        head = f.read(200)
+    log("validate: " + ", ".join(head.splitlines()[:3]))
+    compare_with_host("validate -f", [report, fixed], lambda w: host_validate(
+        PafReader(open_input(bad)), open_output(w[0], True),
+        open_output(w[1], True), True, device=False), secs)
+
+
+def phase_chain2paf(work):
+    """`chain2paf` on the chain the paf2chain phase wrote against the host
+    engine's bytes."""
+    from wgatools_tpu.io.chain import ChainReader
+    from wgatools_tpu.io.compression import open_input, open_output
+    from wgatools_tpu.tools.convert import chain2paf as host_chain2paf
+
+    chain = os.path.join(work, "smoke.chain")
+    out = os.path.join(work, "smoke.c2p.paf")
+    secs = run_cli(["chain2paf", chain, "-o", out, "-r"])
+    compare_with_host("chain2paf", [out], lambda w: host_chain2paf(
+        ChainReader(open_input(chain)), open_output(w[0], True),
+        device=False), secs)
+
+
+def phase_fused_ops(device, bench):
+    """Kernel 8 through its public op (no tool calls it) at bench.py's
+    shape, in both op forms: its stats and offsets must equal the plain
+    word stats and the plain full liftover scan of the same ops."""
+    import torch
+
+    from wgatools_tpu_torch.ops.classify import classify_stat_words_ref
+    from wgatools_tpu_torch.ops.fused import classify_liftover_fused
+    from wgatools_tpu_torch.ops.liftover import liftover_scan_ref, pack_ops_words
+
+    full = bench["full"]
+    tw, qw, lens, ops, op_lens = (full[k] for k in
+                                  ("tw", "qw", "lens", "ops", "op_lens"))
+    want_stats = classify_stat_words_ref(*(torch.from_numpy(a).to(device)
+                                           for a in (tw, qw, lens)))
+    want = liftover_scan_ref(torch.from_numpy(ops).to(device),
+                             torch.from_numpy(op_lens).to(device))
+    for form, args in (("u8+i32", (ops, op_lens)),
+                       ("packed", (pack_ops_words(ops, op_lens), None))):
+        t0 = time.perf_counter()
+        stats, t_off, q_off = classify_liftover_fused(tw, qw, lens, *args,
+                                                      device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if not (torch.equal(stats, want_stats) and torch.equal(t_off, want[0])
+                and torch.equal(q_off, want[1])):
+            raise AssertionError(f"fused_ops {form}: differs from the plain "
+                                 "word stats + liftover scan")
+        log(f"fused_ops {form}: ok, stats + t/q offsets of {ops.shape[0]}x"
+            f"{ops.shape[1]} ops equal the plain stats and scan ({secs:.3f} s "
+            "host wall incl. upload)")
+
+
 def phase_fused(device, bench):
     """Phase 4: the fused flagship at bench.py's shape; anchors expanded
     per op must equal the plain full-table liftover scan."""
@@ -944,6 +1204,10 @@ def profile_tools(work, out_dir):
                          "-o", os.path.join(work, "prof.paf"), "-r"]),
             ("call", call_argv(work, None, "prof.vcf")),
             ("call -c 16000000", call_argv(work, 16_000_000, "prof.vcf")),
+            ("pafcov", ["pafcov", os.path.join(work, "smoke.paf"),
+                        "-o", os.path.join(work, "prof.bed"), "-r"]),
+            ("validate", ["validate", os.path.join(work, "bad.paf"),
+                          "-o", os.path.join(work, "prof.txt"), "-r"]),
         ):
             plain = run_cli(argv)
             with profile(activities=[ProfilerActivity.CPU,
@@ -992,8 +1256,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR",
                     help="after the checks, profile `stat`, `paf2chain`, "
-                    "`maf2paf` and `call` on the device and the host; tables "
-                    "go to DIR/profile.txt")
+                    "`maf2paf`, `call`, `pafcov` and `validate` on the device "
+                    "and the host; tables go to DIR/profile.txt")
     args = ap.parse_args()
 
     import torch
@@ -1038,7 +1302,13 @@ def main():
             ("stat", lambda: phase_stat(work, corpus, rng), ["classify_cat"]),
             ("paf2chain", lambda: phase_paf2chain(work, corpus, rng),
              ["liftover_scan"]),
+            ("pafcov", lambda: phase_pafcov(work), ["liftover_scan"]),
+            ("stat -f paf", lambda: phase_stat_paf(work), []),
+            ("validate", lambda: phase_validate(work), []),
+            ("chain2paf", lambda: phase_chain2paf(work), []),
             ("fused", lambda: phase_fused(device, bench), ["fused_adv16"]),
+            ("fused_ops", lambda: phase_fused_ops(device, bench),
+             ["fused_ops"]),
             ("maf2paf", lambda: phase_maf_tool(work, "maf2paf"),
              ["classify_cat"]),
             ("maf2chain", lambda: phase_maf_tool(work, "maf2chain"),
@@ -1080,6 +1350,7 @@ def main():
         ("classify_nibbles", "classify_nibbles.cu",
          "wgatools_tpu/ops/classify.py:825"),
         ("fused16", "fused16.cu", "wgatools_tpu/ops/fused.py:534"),
+        ("fused_ops", "fused_ops.cu", "wgatools_tpu/ops/fused.py:822"),
     ]
     print(json.dumps({"kernels": [
         {

@@ -394,7 +394,10 @@ def test_cli_refuses_cuda_without_cuda(tmp_path, monkeypatch):
              ["call", "-f", "paf"]]
 )
 def test_cli_unported_subcommands_exit_1(argv, tmp_path, caplog, monkeypatch):
+    """Every subcommand runs on the port; only the distributed modes
+    (WGA_TPU_DIST) are not ported yet."""
     monkeypatch.setenv("WGA_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("WGA_TPU_DIST", "1")
     f = tmp_path / "in.txt"
     f.write_bytes(b"")
     assert cli.main(argv + [str(f)]) == 1

@@ -1,5 +1,5 @@
-// The fused classify + op-scan body shared by kernel C (fused_adv16.cu)
-// and kernel F (fused16.cu).
+// The fused classify + op-scan body shared by kernel C (fused_adv16.cu),
+// kernel F (fused16.cu) and kernel 8 (fused_ops.cu).
 //
 // One launch reads a column plane (cat_stats.cuh: CatPlane, NibblePlane or
 // BytePlane over byte words) and the op words of a matching table, and
@@ -12,7 +12,8 @@
 // formulations (scan_mode vpu / mm / once, chunk, tiles); a block walking
 // its whole row gives the same sums, so those choices have no counterpart.
 //
-// The op words (int32 [B2, NOH] per direction, or one packed plane):
+// The op words (int32 [B2, NOH] per direction, or one packed plane, or
+// kernel 8's op table):
 //   GroupSums        raw group advance sums (liftover.pack_ops_sums) ->
 //                    exclusive group-prefix anchors;
 //   PairWords<ODD>   adv16 pair words (adv_even << 14) | pair_sum
@@ -21,8 +22,14 @@
 //   Packed16         two ops per word, [0:13) len0 [13:16) cls0 [16:29)
 //                    len1 [29:32) cls1 (liftover.pack_ops_words16), classes
 //                    ADV_BOTH=1 (t and q), I=2 and S=3 (q), D=4 (t) ->
-//                    even and odd offsets of both directions.
-// Words are decoded as uint32_t with logical shifts: cls1 = 4 sets bit 31.
+//                    even and odd offsets of both directions;
+//   OpsLens          uint8 ops + int32 lens [B2, NO] -> the full exclusive
+//                    t/q offsets, liftover mode (op_advance.cuh);
+//   PackedOps        (op byte << 24) | len words [B2, NO]
+//                    (liftover.pack_ops_words; bits 16-23 ignored) -> the
+//                    same offsets.
+// Words are decoded as uint32_t with logical shifts: cls1 = 4 and op bytes
+// >= 0x80 set bit 31.
 #pragma once
 
 #include <climits>
@@ -31,6 +38,7 @@
 #include <cuda_runtime.h>
 
 #include "cat_stats.cuh"
+#include "op_advance.cuh"
 #include "row_scan.cuh"
 
 namespace wga {
@@ -128,6 +136,23 @@ struct Packed16Row {
   }
 };
 
+// One row of packed op words (op << 24) | len, decoded as OpsLensRow's.
+struct PackedOpsRow {
+  using Elem = Adv2;
+  const int* opw;
+  int* t_off;
+  int* q_off;
+  __device__ __forceinline__ Elem load(long long i) const {
+    const auto w = static_cast<uint32_t>(__ldg(opw + i));
+    return op_advance<false>(w >> 24, w & 0xffffu);
+  }
+  __device__ __forceinline__ void store(long long i, const Elem&,
+                                        uint32_t ex_t, uint32_t ex_q) const {
+    t_off[i] = static_cast<int>(ex_t);
+    q_off[i] = static_cast<int>(ex_q);
+  }
+};
+
 // Base pointers of the op words and outputs of a launch; row(b) gives the
 // op row b view of a table of NOH words per row.
 struct OpTable {
@@ -164,6 +189,26 @@ struct Packed16 {
   __device__ Packed16Row row(long long b) const {
     const long long o = b * a.NOH;
     return {a.wt + o, {a.te + o, a.to + o, a.qe + o, a.qo + o}};
+  }
+};
+
+// Kernel 8's op tables (NOH = NO ops per row): te and qe receive t_off and
+// q_off.  OpsLens reads the uint8 ops and, in wq, the int32 lens;
+// PackedOps reads the packed words in wt.
+struct OpsLens {
+  OpTable a;
+  const uint8_t* ops;
+  __device__ OpsLensRow<false> row(long long b) const {
+    const long long o = b * a.NOH;
+    return {ops + o, a.wq + o, a.te + o, a.qe + o};
+  }
+};
+
+struct PackedOps {
+  OpTable a;
+  __device__ PackedOpsRow row(long long b) const {
+    const long long o = b * a.NOH;
+    return {a.wt + o, a.te + o, a.qe + o};
   }
 };
 

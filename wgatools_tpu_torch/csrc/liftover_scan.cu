@@ -8,7 +8,8 @@
 //     D and padding;
 //   mode 1 (chain): exclusive cumulative I sizes and D sizes
 //     (cigar_unit_chain, reference cigar.rs:460-490).
-// The advance is decoded here from the op byte, as the TPU kernel did.
+// The advance is decoded here from the op byte, as the TPU kernel did
+// (op_advance.cuh, shared with kernel 8).
 //
 // Memory-bound: 5 B read and 8 B written per op (about 13 B/op) against
 // 3.35 TB/s.  One block per row, a loop over tiles with a running carry
@@ -22,46 +23,19 @@
 
 #include <cuda_runtime.h>
 
-#include "row_scan.cuh"
+#include "op_advance.cuh"
 
 namespace {
 
 constexpr int SCAN_THREADS = 128;
 
 template <bool CHAIN>
-struct OpAdvance {
-  using Elem = wga::Adv2;
-  const uint8_t* ops;
-  const int* lens;
-  int* t_off;
-  int* q_off;
-  __device__ __forceinline__ Elem load(long long i) const {
-    const uint8_t op = ops[i];
-    const uint32_t len = static_cast<uint32_t>(lens[i]);
-    Elem e;
-    if (CHAIN) {
-      e.t = op == 'I' ? len : 0u;
-      e.q = op == 'D' ? len : 0u;
-    } else {
-      e.t = (op == 0 || op == 'I' || op == 'S') ? 0u : len;
-      e.q = (op == 0 || op == 'D') ? 0u : len;
-    }
-    return e;
-  }
-  __device__ __forceinline__ void store(long long i, const Elem&,
-                                        uint32_t ex_t, uint32_t ex_q) const {
-    t_off[i] = static_cast<int>(ex_t);
-    q_off[i] = static_cast<int>(ex_q);
-  }
-};
-
-template <bool CHAIN>
 __global__ void __launch_bounds__(SCAN_THREADS) liftover_scan_kernel(
     const uint8_t* __restrict__ ops, const int* __restrict__ lens,
     int* __restrict__ t_off, int* __restrict__ q_off, long long N) {
   const long long row = blockIdx.x;
-  const OpAdvance<CHAIN> adv{ops + row * N, lens + row * N, t_off + row * N,
-                             q_off + row * N};
+  const wga::OpsLensRow<CHAIN> adv{ops + row * N, lens + row * N,
+                                   t_off + row * N, q_off + row * N};
   wga::block_exclusive_scan2(adv, N);
 }
 

@@ -46,6 +46,7 @@ SIGNATURES = {
     "liftover_scan": [_P, _P, _P, _P, _I, _LL, _I],
     "fused_adv16": [_I, *[_P] * 10, _I, _LL, _I, _LL, _I, _I, _I],
     "fused16": [_I, *[_P] * 9, _I, _LL, _I, _LL, _I],
+    "fused_ops": [*[_P] * 8, _I, _LL, _I, _LL, _I],
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}

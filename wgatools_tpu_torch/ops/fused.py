@@ -1,10 +1,11 @@
-"""Fused column statistics + op-word scans: kernels C and F.
+"""Fused column statistics + op-word scans: kernels C, F and 8.
 
 The port of wgatools_tpu/ops/fused.py::classify_liftover_fused_adv16
-(kernel C, csrc/fused_adv16.cu) and classify_liftover_fused16 (kernel F,
-csrc/fused16.cu).  One kernel reads a column plane of a batch AND the op
-words of the matching op table, and returns the per-record counters of the
-plane plus the exclusive scans of the op words.  The plane is one of
+(kernel C, csrc/fused_adv16.cu), classify_liftover_fused16 (kernel F,
+csrc/fused16.cu) and classify_liftover_fused (kernel 8, csrc/fused_ops.cu).
+One kernel reads a column plane of a batch AND the op words of the matching
+op table, and returns the per-record counters of the plane plus the
+exclusive scans of the op words.  The plane is one of
 
 - byte words: int32 t, q [B, L/4] (the little-endian words of the byte
   planes), the default;
@@ -23,7 +24,10 @@ The op words, int32 [B2, NOH] (B2 may differ from B):
   emit_odd=False (odd = even + (w >> 14), liftover.adv16_odd_offsets);
 - kernel C, raw group sums per direction (liftover.pack_ops_sums,
   raw_sums=True, which implies emit_odd=False) -> (stats, t_anchor,
-  q_anchor), group-prefix anchors for liftover.expand_group_prefix.
+  q_anchor), group-prefix anchors for liftover.expand_group_prefix;
+- kernel 8 (byte words only), one op per slot [B2, NO]: uint8 ops + int32
+  lens, or packed words (liftover.pack_ops_words) -> (stats, t_off, q_off),
+  the full exclusive offsets of kernel B's liftover mode.
 
 bench.py's flagship is kernel C with catmode=True, raw_sums=True.  The TPU
 wrappers' scan_mode ("vpu", "mm", "once"), chunk and tile arguments chose
@@ -42,6 +46,7 @@ from .classify import (
     classify_stat_nibbles_ref,
     classify_stat_words_ref,
 )
+from .liftover import OP_D, OP_I, OP_S
 
 SCAN_MODES = ("vpu", "mm", "once")
 
@@ -206,3 +211,70 @@ def classify_liftover_fused_adv16(tw, qw, lengths, wt, wq, device,
                   te, to, qe, qo, B, LW, B2, NOH, int(caller), int(raw_sums),
                   int(emit_odd))
     return (stats, *offs)
+
+
+def _decode_ops(ops, lens):
+    """int64 (op byte, length) of each op slot: uint8 ops + int32 lens, or,
+    with lens None, packed int32 words (op = w >> 24 logically, len =
+    w & 0xFFFF, bits 16-23 ignored)."""
+    if lens is None:
+        w = ops.to(torch.int64) & 0xFFFFFFFF
+        return w >> 24, w & 0xFFFF
+    return ops.to(torch.int64), lens.to(torch.int64)
+
+
+def _wrap_int32(x):
+    """int64 -> int32 modulo 2^32, as int32 adds wrap."""
+    return ((x + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def classify_liftover_fused_ref(tw, qw, lengths, ops, lens, caller=False):
+    """Plain PyTorch version of kernel 8: (stats int32 [B, 8], t_off, q_off
+    int32 [B2, NO]), the byte-word stats and the exclusive liftover-mode
+    offsets.  The target advances on every op byte but 0, I and S, the
+    query on every op byte but 0 and D; the sums are taken in int64 and
+    wrapped to int32, as the kernel's uint32 adds wrap."""
+    stats = classify_stat_words_ref(tw, qw, lengths, caller)
+    op, ln = _decode_ops(ops, lens)
+    zero = torch.zeros((), dtype=torch.int64, device=ln.device)
+    adv_t = torch.where((op == 0) | (op == OP_I) | (op == OP_S), zero, ln)
+    adv_q = torch.where((op == 0) | (op == OP_D), zero, ln)
+    t_off = _wrap_int32(torch.cumsum(adv_t, dim=1) - adv_t)
+    q_off = _wrap_int32(torch.cumsum(adv_q, dim=1) - adv_q)
+    return stats, t_off, q_off
+
+
+def classify_liftover_fused(tw, qw, lengths, ops, lens, device, caller=False,
+                            tile_b=None, tile_lw=None, tile_lo=None,
+                            interpret=False, scan_chunk=None,
+                            scan_mode="vpu"):
+    """Byte-word counters + the full liftover offsets of an op table, in
+    one pass.
+
+    tw, qw: int32 [B, LW] byte-word planes; lengths: int32 [B] in columns;
+    ops: uint8 [B2, NO] (0 = padding) with lens int32 [B2, NO], or, with
+    lens None, packed int32 words [B2, NO] (liftover.pack_ops_words).
+    Arrays may be numpy or tensors; they are moved to `device`.  Returns
+    (stats [B, 8], t_off, q_off [B2, NO]), int32 on `device`: kernel 8 on
+    a CUDA device, the plain version on the CPU.  Any op length is exact
+    (no len < 2^16 bound).  The tile sizes, interpret, scan_chunk and
+    scan_mode are accepted for the TPU signature and change nothing."""
+    tw, qw, lengths, ops, lens = _to_device(device, tw, qw, lengths, ops, lens)
+    if device.type == "cpu":
+        return classify_liftover_fused_ref(tw, qw, lengths, ops, lens, caller)
+    B, LW, B2, NO = _check_fused("classify_liftover_fused", _WORDS, tw, qw,
+                                 lengths, (ops if lens is None else lens,),
+                                 scan_mode)
+    if lens is not None:
+        _build.check_cuda(ops, lens)
+        if ops.dtype != torch.uint8 or ops.shape != lens.shape:
+            raise ValueError(
+                "classify_liftover_fused takes uint8 ops of the lens' shape "
+                f"(got {ops.dtype} {tuple(ops.shape)})"
+            )
+    stats = torch.zeros((B, N_STATS), dtype=torch.int32, device=device)
+    t_off, q_off = (torch.empty((B2, NO), dtype=torch.int32, device=device)
+                    for _ in range(2))
+    _build.launch("fused_ops", tw, qw, lengths, ops, lens, stats, t_off,
+                  q_off, B, LW, B2, NO, int(caller))
+    return stats, t_off, q_off

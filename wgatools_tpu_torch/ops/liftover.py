@@ -1,6 +1,7 @@
-"""Per-op offset scans and the host op packers.
+"""Per-op offset scans, the coverage and chain tables built on them, and
+the host op packers.
 
-The port of the main-path pieces of wgatools_tpu/ops/liftover.py.  Every
+The port of wgatools_tpu/ops/liftover.py.  Every
 coordinate walk of the CIGAR engine is an exclusive prefix sum of per-op
 advances along each record's row of a padded [B, N] op table (op 0 is
 padding):
@@ -17,15 +18,20 @@ package's bf16-limb matmul scans and their `wide` switch were workarounds
 for the TPU's matrix unit and have no counterpart here: int32 sums are exact
 for any op length.
 
-The numpy packers below (pack_ops_words16, pack_ops_adv16, pack_ops_sums,
-expand_group_prefix, ...) are the host side of the fused kernels' op words
-and match the TPU package's byte for byte.
+`coverage_span_table`, `spans_to_coverage` and `chain_advance_table` are
+the tables pafcov and the chain tools build from those scans, on tensors of
+one device.
+
+The numpy packers below (pack_ops_words, pack_ops_words16, pack_ops_adv16,
+pack_ops_sums, expand_group_prefix, ...) are the host side of the fused
+kernels' op words and match the TPU package's byte for byte.
 """
 
 import numpy as np
 import torch
 
 from ..kernels import _build
+from .coverage import diff_to_coverage, scatter_spans
 
 OP_M = ord("M")
 OP_EQ = ord("=")
@@ -89,6 +95,43 @@ def chain_scan(ops, lens):
     return _scan(ops, lens, "chain")
 
 
+def coverage_span_table(ops, lens, t_starts):
+    """Per-op absolute M/'=' coverage spans (update_cov_vec semantics).
+
+    ops: uint8 [B, N] (0 = padding); lens: int32 [B, N]; t_starts: int32
+    [B], the records' target starts.  Returns (starts, ends) int32 [B, N]
+    with the ops that cover nothing marked -1, as
+    wgatools_tpu.tools.pafcov.coverage_spans gives them.  The target
+    offsets come from liftover_scan (kernel B on CUDA tensors)."""
+    lens = lens.to(torch.int32)
+    t_off, _ = liftover_scan(ops, lens)
+    cover = (ops == OP_M) | (ops == OP_EQ)
+    starts = t_starts.to(torch.int32)[:, None] + t_off
+    ends = starts + lens
+    neg = torch.full((), -1, dtype=torch.int32, device=ops.device)
+    return torch.where(cover, starts, neg), torch.where(cover, ends, neg)
+
+
+def spans_to_coverage(starts, ends, genome_len: int):
+    """Span tables (any shape) -> int32 [genome_len] per-base coverage of
+    one target: a difference array and its prefix sum.  Spans whose start
+    is negative are padding and add nothing."""
+    starts, ends = starts.reshape(-1), ends.reshape(-1)
+    diff = torch.zeros(genome_len + 1, dtype=torch.int32, device=starts.device)
+    scatter_spans(diff, starts, ends, valid=(starts >= 0).to(torch.int32))
+    return diff_to_coverage(diff)
+
+
+def chain_advance_table(ops, lens):
+    """INCLUSIVE per-op cumulative (ins, del) sizes: chain_scan plus each
+    op's own I or D length."""
+    lens = lens.to(torch.int32)
+    zero = torch.zeros((), dtype=torch.int32, device=lens.device)
+    ex_i, ex_d = chain_scan(ops, lens)
+    return (ex_i + torch.where(ops == OP_I, lens, zero),
+            ex_d + torch.where(ops == OP_D, lens, zero))
+
+
 def int32_safe_record(lens) -> bool:
     """Whether one record's op table can take the int32 device scan: it
     has ops and its lengths sum below 2^31 (so no prefix can wrap).  The
@@ -118,6 +161,17 @@ def pack_ops_batch(op_arrays, len_arrays, align=128):
         ops[k, : len(o)] = o
         lens[k, : len(o)] = l
     return ops, lens
+
+
+def pack_ops_words(ops, lens):
+    """Packed op words for kernel 8: (op byte << 24) | len, int32 [B, N];
+    every length < 2^16 (ValueError otherwise).  Padding (op 0, len 0)
+    packs to 0."""
+    ops = np.asarray(ops, dtype=np.uint8)
+    lens = np.asarray(lens)
+    if lens.max(initial=0) >= (1 << 16):
+        raise ValueError("packed op words need len < 2^16")
+    return (ops.astype(np.int32) << 24) | lens.astype(np.int32)
 
 
 # advance classes for the 16-bit packings: which of (target, query) an op

@@ -1,5 +1,5 @@
-"""`maf2paf`, `maf2chain` and `paf2chain` (reference: converter.rs:29-92,
-148-173) through the device.
+"""`maf2paf`, `maf2chain`, `paf2chain` and `chain2paf` (reference:
+converter.rs:29-92, 148-173, 391-416) through the device.
 
 The device branches of wgatools_tpu/tools/convert.py on PyTorch:
 
@@ -16,13 +16,14 @@ branches are the TPU package's own host code, so both engines write the
 same bytes by construction.
 """
 
+import numpy as np
 import torch
 
 from wgatools_tpu import native
 from wgatools_tpu.core import cigar as C
 from wgatools_tpu.core.metrics import METRICS
 from wgatools_tpu.io.chain import chain_header_from_record, write_chain_record
-from wgatools_tpu.io.paf import PafWriter
+from wgatools_tpu.io.paf import PafRecord, PafWriter
 from wgatools_tpu.tools.convert import (
     _chain_block_from_scan,
     _emit_chain,
@@ -193,6 +194,93 @@ def _paf2chain_device(pafreader, writer, device, batch_ops=1 << 20,
         pending.append((record, ops, lens))
         total += len(ops)
         if total >= batch_ops:
+            flush()
+    flush()
+    writer.flush()
+
+
+def chain2paf(chainreader, writer, device):
+    """chain -> PAF on `device`; batches below DEVICE_MIN_OPS data lines
+    are answered on the host, as in the TPU package."""
+    _chain2paf_device(chainreader, writer, device)
+
+
+def _paf_from_chain_sums(record, match, del_ct):
+    """The PAF row of one chain record from its summed sizes (match) and
+    dqs (del_ct), the cg:Z: string from its data lines."""
+    ops, lens = record.op_arrays()
+    cat = np.where(ops == C.OP_I, 1, np.where(ops == C.OP_D, 2, 0)).astype(
+        np.uint8)
+    cg = native.format_runs(cat, np.asarray(lens, np.int64), b"MID")
+    if cg is None:  # no native library: a plain join
+        cg = "".join(f"{n}{'MID'[v]}" for v, n in
+                     zip(cat.tolist(), np.asarray(lens).tolist()))
+    return PafRecord(
+        query_name=record.query_name,
+        query_length=record.query_length,
+        query_start=record.query_start,
+        query_end=record.query_end,
+        strand=record.query_strand,
+        target_name=record.target_name,
+        target_length=record.target_length,
+        target_start=record.target_start,
+        target_end=record.target_end,
+        matches=match,
+        block_length=match + del_ct,
+        mapq=255,
+        tags=["cg:Z:" + cg],
+    )
+
+
+def _chain2paf_device(chainreader, writer, device, batch_lines=1 << 20,
+                      min_lines=None):
+    """Batched pipeline: per-record sums of sizes, dts and dqs as one
+    device segment sum per batch of about `batch_lines` data lines, rows
+    and cg strings formatted on the host.  A batch below `min_lines`
+    (DEVICE_MIN_OPS) is answered by the host engine; a record whose sums
+    reach 2^31 takes the int64 host path, in order."""
+    if min_lines is None:
+        min_lines = DEVICE_MIN_OPS
+    paf_writer = PafWriter(writer)
+    pending = []
+    total = 0
+
+    def flush():
+        nonlocal total
+        if not pending:
+            return
+        if total < min_lines:
+            for record in pending:
+                paf_writer.write_record(record.convert2paf())
+        else:
+            vals = np.stack([
+                np.concatenate([r.sizes for r in pending]),
+                np.concatenate([r.dts for r in pending]),
+                np.concatenate([r.dqs for r in pending]),
+            ], axis=1).astype(np.int32)
+            row_ids = np.repeat(np.arange(len(pending), dtype=np.int32),
+                                [len(r.sizes) for r in pending])
+            with METRICS.stage("device_chain_sums", vals.nbytes):
+                sums = torch.zeros((len(pending), 3), dtype=torch.int32,
+                                   device=device)
+                sums.index_add_(0, torch.from_numpy(row_ids).to(device).long(),
+                                torch.from_numpy(vals).to(device))
+                sums = sums.cpu().numpy()
+            for record, (match, _, del_ct) in zip(pending, sums.tolist()):
+                paf_writer.write_record(
+                    _paf_from_chain_sums(record, match, del_ct))
+        pending.clear()
+        total = 0
+
+    for record in chainreader.records():
+        if (int(record.sizes.sum()) + int(record.dqs.sum())
+                + int(record.dts.sum())) >= 2**31:
+            flush()
+            paf_writer.write_record(record.convert2paf())
+            continue
+        pending.append(record)
+        total += len(record.sizes)
+        if total >= batch_lines:
             flush()
     flush()
     writer.flush()

@@ -1,7 +1,9 @@
-"""`stat` on MAF input (reference: src/tools/stat.rs) through the device.
+"""`stat` (reference: src/tools/stat.rs) through the device.
 
-The device branch of wgatools_tpu/tools/stat.py::stat_maf on PyTorch:
-records stream through ops.batch.stream_seq_pair_stats.  Aggregation,
+The device branches of wgatools_tpu/tools/stat.py on PyTorch: MAF records
+stream through ops.batch.stream_seq_pair_stats (stat_maf), PAF records
+through the segment sums of tools.validate.stream_batch_stats (stat_paf).
+Aggregation,
 sorting and formatting are the TPU package's own host code (PairStat,
 write_style_result), and so is the host branch, so both engines write the
 same bytes by construction.
@@ -14,6 +16,7 @@ from wgatools_tpu.tools.stat import PairStat, write_style_result
 
 from ..core.device import DEVICE_MIN_COLUMNS
 from ..ops.batch import DEFAULT_BATCH_COLUMNS, stream_seq_pair_stats
+from .validate import stream_batch_stats
 
 
 def stat_maf(reader, writer, device, each=False, query_name=None,
@@ -70,5 +73,23 @@ def stat_maf(reader, writer, device, each=False, query_name=None,
             rec_stat=rs,
         )
         for m, rs in results
+    ]
+    write_style_result(pair_stats, writer, each)
+
+
+def stat_paf(reader, writer, device, each=False):
+    """PAF statistics (reference: stat.rs:87-105), the per-record counters
+    on `device`.  Records stream; only the per-pair rows accumulate."""
+    pair_stats = [
+        PairStat(
+            ref_name=rec.target_name,
+            ref_size=rec.target_length,
+            query_name=rec.query_name,
+            query_size=rec.query_length,
+            ref_start=rec.target_start,
+            query_start=rec.query_start,
+            rec_stat=rs,
+        )
+        for rec, rs in stream_batch_stats(reader.records(), device)
     ]
     write_style_result(pair_stats, writer, each)
