@@ -10,7 +10,9 @@ Builds the port's CUDA kernels from wgatools_tpu_torch/csrc/ and then:
    times both;
 2. runs `stat` and `stat -e` through the port's command line on a ~100 Mbp
    MAF made from the seed, and checks the bytes against the host engine;
-3. runs `paf2chain` the same way on a 100 000-record PAF;
+3. runs `paf2chain` the same way on a 100 000-record PAF, and on a PAF
+   of 8 records x 2^17 CIGAR ops (one batch of long rows: kernel B's
+   tiled path);
 4. runs the fused flagship kernel at bench.py's shape and checks its
    anchors, expanded per op on the host, against the plain full liftover
    scan of the same ops;
@@ -84,6 +86,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # call MAF (~40 Mbp)
 BENCH_B, BENCH_L = 128, 1 << 20
 SCAN_ROWS, SCAN_N = 8192, 128
+# kernel B's long rows (few records of 10^5-10^6 CIGAR ops, as whole
+# assemblies aligned to each other give), and 2^20-slot batches on both
+# sides of its long-row threshold (4096 ops)
+LONG_SCANS = ((4, 1 << 18), (1, 1 << 20))
+THRESHOLD_SCANS = ((512, 2048), (256, 4095), (256, 4096), (64, 16_384))
+# the long-record paf2chain phase: records x CIGAR ops each
+LONG_PAF_RECORDS, LONG_PAF_RUNS = 8, 1 << 17
 MAF_RECORDS, MAF_COLUMNS = 512, 200_000
 PAF_RECORDS, PAF_RUNS = 100_000, 40
 CALL_ROW = 12_500_003
@@ -306,17 +315,45 @@ def phase_kernels(rng, device, gates, times):
         time_ms(lambda: liftover_scan_ref(ops, olens, "chain")),
     )
     record_work("liftover_scan", R * N * (1 + 4 + 8), 2 * R * N)
-    # kernel B edge shapes: B=9 with N not a tile multiple and lengths
-    # past 2^16, B=1, an all-padding row
-    for rows, n in ((9, 1000), (1, 3), (3, 129)):
+    log_scan_times(f"{R}x{N}", ops, olens, times["liftover_scan"])
+    # kernel B's long rows, both modes, timed against the same 13 B/op
+    for rows, n in LONG_SCANS + THRESHOLD_SCANS:
+        l_ops = op_chars[rng.integers(0, 8, size=(rows, n))]
+        l_lens = rng.integers(0, 2000, size=(rows, n)).astype(np.int32)
+        lo, ll = up(l_ops), up(l_lens)
+        if (rows, n) in LONG_SCANS:
+            for name, fn in (("liftover", liftover_scan), ("chain", chain_scan)):
+                gates.check("liftover_scan", f"{rows}x{n} mode={name}",
+                            fn(lo, ll), liftover_scan_ref(lo, ll, name))
+        log_scan_times(f"{rows}x{n}", lo, ll, (
+            time_ms(lambda: chain_scan(lo, ll)),
+            time_ms(lambda: liftover_scan_ref(lo, ll, "chain"), reps=5)))
+        del lo, ll
+    # kernel B edge shapes: B=9 with N not a step multiple and lengths
+    # past 2^16, B=1, an all-padding row; rows at and just past the
+    # long-row threshold (4096 ops), N not a multiple of 4 or 16, lengths
+    # whose row sums wrap int32
+    for rows, n, max_len in ((9, 1000, 200_000), (1, 3, 200_000),
+                             (3, 129, 200_000), (1, 4096, 200_000),
+                             (3, 4097, 200_000), (2, 4099, 1 << 20),
+                             (5, 4110, 1 << 20), (1, 6145, 1 << 20),
+                             (4, 8205, 1 << 30), (3, 4095, 1 << 30)):
         e_ops = op_chars[rng.integers(0, 8, size=(rows, n))]
         e_ops[-1, :] = 0
-        e_lens = rng.integers(0, 200_000, size=(rows, n)).astype(np.int32)
+        e_lens = rng.integers(0, max_len, size=(rows, n)).astype(np.int32)
         for name, fn in (("liftover", liftover_scan), ("chain", chain_scan)):
             gates.check(
                 "liftover_scan", f"edge {rows}x{n} mode={name}",
                 fn(up(e_ops), up(e_lens)),
                 liftover_scan_ref(up(e_ops), up(e_lens), name),
+            )
+        # bases off alignment: lens 4 B past, ops 0-3 B past (rows whose
+        # pointers cannot all be aligned go op by op)
+        for o_off, l_off in ((0, 4), (1, 0), (3, 8)):
+            s_ops, s_lens = shifted(up(e_ops), o_off), shifted(up(e_lens), l_off)
+            gates.check(
+                "liftover_scan", f"edge {rows}x{n} ops+{o_off} lens+{l_off}",
+                liftover_scan(s_ops, s_lens), liftover_scan_ref(s_ops, s_lens),
             )
 
     # kernel C at bench.py's shape: the same plane, N_OPS = L/32 ops per row
@@ -370,7 +407,8 @@ def phase_kernels(rng, device, gates, times):
                 bench_c(f_cw, f_len, f_st, f_sq, caller),
                 bench_c_ref(f_cw, f_len, f_st, f_sq, caller),
             )
-        rows, n = int(rng.integers(1, 64)), int(rng.integers(1, 3000))
+        rows = int(rng.integers(1, 64))
+        n = int(rng.integers(1, 3000) if k % 2 else rng.integers(4096, 20_000))
         f_ops = up(rng.integers(0, 256, (rows, n)).astype(np.uint8))
         f_lens = up(rng.integers(0, 1 << 19, (rows, n)).astype(np.int32))
         for name, fn in (("liftover", liftover_scan), ("chain", chain_scan)):
@@ -380,19 +418,41 @@ def phase_kernels(rng, device, gates, times):
     full = gate_plane_kernels(rng, device, gates, times, t0, q0, cw_np,
                               lens_np)
     gate_fused_ops(rng, device, gates, times, full)
+    log(f"classify_bytes [1, {CALL_ROW}] caller: kernel "
+        f"{times['classify_bytes'][0]:.5f} ms; its word entry "
+        f"(classify_words) at B={BENCH_B} L={BENCH_L}: kernel "
+        f"{times['classify_words'][0]:.5f} ms")
     return {"cw": cw, "lens": lens, "ops": bench_ops, "op_lens": bench_lens,
             "full": full}
 
 
 def shifted(a, offset):
     """A contiguous copy of tensor `a` whose data starts `offset` bytes past
-    an allocation's (aligned) start."""
+    an allocation's (aligned) start (a multiple of its element size)."""
     import torch
 
-    buf = torch.empty(a.numel() + offset, dtype=torch.uint8, device=a.device)
-    out = buf[offset:].view(a.shape)
+    nbytes = a.numel() * a.element_size()
+    buf = torch.empty(nbytes + offset, dtype=torch.uint8, device=a.device)
+    out = buf[offset:].view(a.dtype).view(a.shape)
     out.copy_(a)
     return out
+
+
+def log_scan_times(shape, ops, lens, ms):
+    """Kernel B's line at one shape: its chain-mode time and the plain
+    version's (ms), the 13 B/op bound, and torch.cumsum of one pre-decoded
+    int32 advance table of the same shape: a yardstick of half the
+    function (one of its two scans, without the op decode), not a library
+    call that computes it."""
+    import torch
+
+    adv = torch.where(ops == ord("I"), lens, torch.zeros_like(lens))
+    cumsum_ms = time_ms(lambda: torch.cumsum(adv, dim=1, dtype=torch.int32))
+    bound_ms = ops.numel() * (1 + 4 + 8) / PEAK_BYTES_PER_S * 1e3
+    log(f"liftover_scan {shape} chain: kernel {ms[0]:.5f} ms, plain "
+        f"{ms[1]:.5f} ms, bound {bound_ms:.5f} ms; torch.cumsum of one "
+        f"pre-decoded int32 advance table (half the function) "
+        f"{cumsum_ms:.5f} ms")
 
 
 def gate_classify_bytes(rng, device, gates, times):
@@ -473,20 +533,44 @@ def gate_classify_bytes(rng, device, gates, times):
                     [classify_stat_bytes(t, q, n, caller)],
                     [classify_stat_bytes_ref(t, q, n, caller)],
                 )
+    # t and q at different offsets (0-15 bytes apart): every column of such
+    # rows goes through load8 one lane each
+    for L in (1001, 4099, 16_387, 40_001):
+        lengths = [0, 1, 17, L, L - 1, L // 2, min(L, 1025), 2049 % L]
+        pairs = random_pairs(rng, lengths, all_gap_rows=(3,))
+        t_np = padding[rng.integers(0, len(padding), (len(lengths), L))]
+        q_np = padding[rng.integers(0, len(padding), (len(lengths), L))]
+        for k, (tb, qb) in enumerate(pairs):
+            t_np[k, :len(tb)] = np.frombuffer(tb, np.uint8)
+            q_np[k, :len(qb)] = np.frombuffer(qb, np.uint8)
+        n = up(np.array(lengths, np.int32))
+        for t_off, q_off in ((0, 1), (0, 15), (3, 10), (7, 0), (15, 2),
+                             (9, 9), (16, 0)):
+            t, q = shifted(up(t_np), t_off), shifted(up(q_np), q_off)
+            for caller in (False, True):
+                gates.check(
+                    "classify_bytes",
+                    f"edge B={len(lengths)} L={L} t+{t_off} q+{q_off} "
+                    f"caller={caller}",
+                    [classify_stat_bytes(t, q, n, caller)],
+                    [classify_stat_bytes_ref(t, q, n, caller)],
+                )
     # random shapes: arbitrary bytes ('-' frequent), lengths below 0 and
-    # past the row, any base offset
+    # past the row, any base offsets of t and q
     for k in range(8):
         b, L = int(rng.integers(1, 300)), int(rng.integers(1, 5000))
         raw = rng.integers(0, 256, (2, b, L)).astype(np.uint8)
         raw[rng.random((2, b, L)) < 0.3] = ord("-")
         same = rng.random((b, L)) < 0.4
         raw[1][same] = raw[0][same]
-        offset = int(rng.integers(0, 4))
-        t, q = shifted(up(raw[0]), offset), shifted(up(raw[1]), offset)
+        offset = int(rng.integers(0, 16))
+        q_offset = offset if k % 2 else int(rng.integers(0, 16))
+        t, q = shifted(up(raw[0]), offset), shifted(up(raw[1]), q_offset)
         n = up(rng.integers(-8, L + 16, b).astype(np.int32))
         for caller in (False, True):
             gates.check("classify_bytes",
-                        f"random {k} B={b} L={L} offset={offset} caller={caller}",
+                        f"random {k} B={b} L={L} offsets={offset},{q_offset} "
+                        f"caller={caller}",
                         [classify_stat_bytes(t, q, n, caller)],
                         [classify_stat_bytes_ref(t, q, n, caller)])
 
@@ -944,6 +1028,35 @@ def phase_paf2chain(work, corpus, rng):
         f"host engine {host_secs:.3f} s")
 
 
+def phase_paf2chain_long(work, corpus, rng):
+    """`paf2chain` on a PAF of LONG_PAF_RECORDS records of LONG_PAF_RUNS
+    CIGAR ops each: one batch of a few long rows, kernel B's long-row
+    path, against the host engine's bytes."""
+    from wgatools_tpu_torch.io.compression import open_input
+    from wgatools_tpu_torch.io.paf import PafReader
+    from wgatools_tpu_torch.tools.convert import paf2chain
+
+    paf = os.path.join(work, "long.paf")
+    t0 = time.perf_counter()
+    corpus.make_paf(paf, rng, LONG_PAF_RECORDS, LONG_PAF_RUNS)
+    log(f"paf2chain long records: wrote {os.path.getsize(paf)} B of PAF in "
+        f"{time.perf_counter() - t0:.3f} s")
+    out = os.path.join(work, "long.chain")
+    secs = run_cli(["paf2chain", paf, "-o", out, "-r"])
+    t0 = time.perf_counter()
+    want = io.BytesIO()
+    paf2chain(PafReader(open_input(paf)), want, None)
+    host_secs = time.perf_counter() - t0
+    with open(out, "rb") as f:
+        got = f.read()
+    if got != want.getvalue():
+        raise AssertionError("paf2chain long records: bytes differ from the "
+                             "host engine")
+    log(f"paf2chain long records: ok, {len(got)} B identical; port "
+        f"{secs:.3f} s, host engine {host_secs:.3f} s")
+    os.remove(paf)
+
+
 def file_digest(path):
     """(size, SHA-256) of a file, read in 64 MiB pieces."""
     import hashlib
@@ -1361,6 +1474,9 @@ def main():
             ("paf2chain", lambda: phase_paf2chain(work, corpus, rng),
              ["liftover_scan"]),
             ("pafcov", lambda: phase_pafcov(work), ["liftover_scan"]),
+            ("paf2chain long records",
+             lambda: phase_paf2chain_long(work, corpus, rng),
+             ["liftover_scan"]),
             ("stat -f paf", lambda: phase_stat_paf(work), []),
             ("validate", lambda: phase_validate(work), []),
             ("chain2paf", lambda: phase_chain2paf(work), []),

@@ -6,9 +6,13 @@ arguments (run serially), with neither jax nor wgatools_tpu imported in
 the port's process; one case per run.  A few subcommands also go through
 `python -m wgatools_tpu_torch`, one process each.  tview is interactive and
 left out.  Also: WGA_TPU_TRACE writes a torch.profiler trace, and
-WGA_TPU_DIST is refused with exit 1 and no output.
+under WGA_TPU_DIST the port exits 1 with no output exactly where the TPU
+package starts a distributed run, and writes the TPU package's bytes
+everywhere else.
 """
 
+import gzip
+import io
 import json
 import os
 import random
@@ -308,3 +312,53 @@ def test_dist_mode_is_refused_and_writes_nothing(run, inputs, tmp_path,
     assert cli.main(argv) == 1
     assert "WGA_TPU_DIST" in caplog.text
     assert os.listdir(o) == []
+
+
+# under WGA_TPU_DIST, the branches where the TPU package runs the serial
+# tool: other subcommands, filter without -a, stdin and compressed inputs.
+# (argv, file piped to stdin or None); {d}: the inputs
+DIST_SERIAL_RUNS = [
+    (["call", "-f", "paf", "{d}/in.paf", "--target", "{d}/all.fa", "-q",
+      "{d}/all.fa", "-s"], None),
+    (["rename", "{d}/in.maf", "-p", "x.,y.,z."], None),
+    (["chunk", "{d}/in.maf", "-l", "40"], None),
+    (["filter", "-f", "paf", "{d}/in.paf", "-b", "20"], None),
+    (["filter", "-f", "paf", "-a", "60"], "in.paf"),
+    (["stat"], "in.maf"),
+    (["stat", "-f", "paf", "{d}/in.paf.gz"], None),
+    (["maf2paf", "{d}/in.maf.gz"], None),
+    (["pafcov"], "in.paf"),
+    (["paf2chain"], "in.paf"),
+    (["validate"], "bad.paf"),
+]
+
+
+@pytest.mark.parametrize(
+    "run,stdin", DIST_SERIAL_RUNS,
+    ids=[" ".join(r[:3]) + (f" < {i}" if i else "") for r, i in DIST_SERIAL_RUNS])
+def test_dist_mode_runs_the_serial_tool_where_the_tpu_package_does(
+        run, stdin, inputs, tmp_path, monkeypatch):
+    """WGA_TPU_DIST=1 with one process: where wgatools_tpu/cli.py starts no
+    distributed run, the port writes its bytes."""
+    monkeypatch.setenv("WGA_TPU_DIST", "1")
+    monkeypatch.setenv("WGA_TORCH_DEVICE", "cpu")
+    for name in ("in.maf", "in.paf"):
+        gz = os.path.join(inputs, name + ".gz")
+        if not os.path.exists(gz):
+            with open(os.path.join(inputs, name), "rb") as f:
+                data = f.read()
+            with gzip.open(gz + ".tmp", "wb") as f:
+                f.write(data)
+            os.replace(gz + ".tmp", gz)
+    argv = [a.format(d=inputs) for a in run]
+    outs = []
+    for label, main in (("got", cli.main), ("want", host_main)):
+        if stdin is not None:
+            with open(os.path.join(inputs, stdin), "rb") as f:
+                monkeypatch.setattr(sys, "stdin",
+                                    io.TextIOWrapper(io.BytesIO(f.read())))
+        out = tmp_path / label
+        assert main(argv + ["-o", str(out)]) == 0, label
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1]
+    assert outs[0]

@@ -11,9 +11,14 @@ visible aliases, and global flags (-o/--outfile, -r/--rewrite,
 - the host-only subcommands, `call -f paf`, and `-t > 1` on a plain file
   (the fork pools of parallel.host_pool) run the host engine.
 
-The distributed modes (WGA_TPU_DIST) are not ported: the port refuses them
-with exit 1 and writes nothing, rather than run the whole tool on every
-rank.  WGA_TPU_TRACE=<dir> writes a torch.profiler trace (core.metrics).
+The distributed modes (WGA_TPU_DIST) are not ported.  Under that
+variable the port exits 1, writing nothing, in exactly the branches where
+wgatools_tpu/cli.py starts one: maf2paf, maf2chain, paf2chain, chain2paf,
+stat (MAF and PAF), dotplot, `filter -f paf -a N`, pafcov, validate and
+`call -f maf` on a plain seekable input, and pafpseudo on any input.
+Everywhere else (other subcommands, stdin and compressed inputs) it runs
+the serial tool, as the TPU package does.  WGA_TPU_TRACE=<dir> writes a
+torch.profiler trace (core.metrics).
 """
 
 import argparse
@@ -279,13 +284,21 @@ def _dist_requested() -> bool:
     return os.environ.get("WGA_TPU_DIST", "") not in ("", "0", "false")
 
 
+def _refuse_dist(args, plain_only=True):
+    """Raise where wgatools_tpu/cli.py starts a distributed run: under
+    WGA_TPU_DIST with a plain seekable input (any input when plain_only is
+    False).  Called before the branch opens any output."""
+    from .parallel.host_pool import is_plain_seekable
+
+    if _dist_requested() and (not plain_only
+                              or is_plain_seekable(args.input)):
+        raise WGAError("distributed mode (WGA_TPU_DIST) is not yet ported "
+                       "to wgatools_tpu_torch: unset it to run one process")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     init_logger(args.verbose)
-    if _dist_requested():
-        log.error("distributed mode (WGA_TPU_DIST) is not yet ported to "
-                  "wgatools_tpu_torch: unset it to run one process")
-        return 1
     try:
         with maybe_trace(), METRICS.stage("total"):
             dispatch(args)
@@ -324,6 +337,7 @@ def dispatch(args):
         from .parallel.host_pool import parallel_maf2paf
         from .tools.convert import maf2paf
 
+        _refuse_dist(args)
         if pooled:
             parallel_maf2paf(
                 args.input, open_output(out, rw), args.threads, args.query_name
@@ -335,6 +349,7 @@ def dispatch(args):
         from .parallel.host_pool import parallel_maf2chain
         from .tools.convert import maf2chain
 
+        _refuse_dist(args)
         if pooled:
             parallel_maf2chain(
                 args.input, open_output(out, rw), args.threads, args.query_name
@@ -355,6 +370,7 @@ def dispatch(args):
         from .parallel.host_pool import parallel_paf2chain
         from .tools.convert import paf2chain
 
+        _refuse_dist(args)
         if pooled:
             parallel_paf2chain(args.input, open_output(out, rw), args.threads)
         else:
@@ -373,6 +389,7 @@ def dispatch(args):
         from .parallel.host_pool import parallel_chain2paf
         from .tools.convert import chain2paf
 
+        _refuse_dist(args)
         if pooled:
             parallel_chain2paf(args.input, open_output(out, rw), args.threads)
         else:
@@ -418,6 +435,7 @@ def dispatch(args):
         from .parallel.host_pool import parallel_stat_maf, parallel_stat_paf
         from .tools.stat import stat_maf, stat_paf
 
+        _refuse_dist(args)
         if args.format == "maf":
             if pooled:
                 parallel_stat_maf(
@@ -441,6 +459,7 @@ def dispatch(args):
     elif cmd in ("dotplot", "dp"):
         from .tools.dotplot import dotplot
 
+        _refuse_dist(args)
         dotplot(
             args.input,
             open_output(out, rw),
@@ -461,6 +480,8 @@ def dispatch(args):
             filter_paf_align_pair,
         )
 
+        if args.format == "paf" and args.min_align_size is not None:
+            _refuse_dist(args)
         w = open_output(out, rw)
         if args.format == "maf":
             filter_maf(
@@ -513,6 +534,7 @@ def dispatch(args):
         from .parallel.host_pool import parallel_pafcov
         from .tools.pafcov import pafcov
 
+        _refuse_dist(args)
         if pooled:
             parallel_pafcov(args.input, open_output(out, rw), args.threads)
         else:
@@ -521,6 +543,7 @@ def dispatch(args):
     elif cmd in ("pafpseudo", "pp"):
         from .tools.pseudomaf import generate_pseudo_maf
 
+        _refuse_dist(args, plain_only=False)
         generate_pseudo_maf(
             PafReader(open_input(args.input)),
             out,
@@ -545,6 +568,7 @@ def dispatch(args):
                 raise WGAError(
                     "fixed file should not be the same as output file"
                 )
+        _refuse_dist(args)
         if pooled:
             fix_writer = open_output(args.fix, True) if fix_requested else None
             parallel_validate_paf(
@@ -610,6 +634,7 @@ def _dispatch_call(args, out, rw, pooled):
             if args.query_regex
             else None
         )
+        _refuse_dist(args)
         if pooled:
             parallel_call_maf(
                 args.input,

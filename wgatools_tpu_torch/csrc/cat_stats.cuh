@@ -1,9 +1,10 @@
 // Column statistics over a plane of aligned column pairs: the device code
 // shared by kernels A (classify_cat.cu), D and its word entry
 // (classify_bytes.cu), E (classify_nibbles.cu) and the fused kernels C, F
-// and 8 (fused.cuh).  The category plane of A and C streams through
-// cat_stream.cuh, which counts with count_word and add_chunk_counters at
-// its edges; the other planes through plane_stats_chunk below.
+// and 8 (fused.cuh).  The category plane of A and C and the byte plane of
+// D stream through cat_stream.cuh, which counts its ragged edges with
+// count_word; the nibble plane and the byte planes of F and 8 go through
+// plane_stats_chunk below.
 //
 // Replaces the bodies of wgatools_tpu/ops/classify.py::_kernel_cat,
 // _kernel (byte planes), _kernel_words and _kernel_nibbles.  Every plane is
@@ -14,9 +15,9 @@
 // del_events, gap/gap, runs).  The planes:
 //   CatPlane     int32 [B, LW] category words, read as they are (kernels A
 //                and C, cat_stream.cuh);
-//   BytePlane    uint8 t, q [B, L] of any width and base alignment (kernel
-//                D); an int32 [B, LW] byte-word plane is the same buffer
-//                with L = 4 LW;
+//   BytePlane    uint8 t, q [B, L] of any width and base alignment; an
+//                int32 [B, LW] byte-word plane is the same buffer with
+//                L = 4 LW (kernels F and 8 here, kernel D in cat_stream.cuh);
 //   NibblePlane  int32 t, q [B, LW] 4-bit dictionary codes, gap = 0, code
 //                equality = byte equality (kernel E).
 //
@@ -34,8 +35,8 @@
 // adds them with integer atomics into a zeroed [B, 8] buffer: exact in any
 // order, so every counter is linear per chunk (mismatched = valid - (EQ|GG)
 // - I - D, caller-mode matched = bit0 - GG).
-// Left for later on these planes: the persistent blocks, 16-byte loads and
-// bit-sliced counts of cat_stream.cuh.
+// Left for later on the nibble plane and F's and 8's byte words: the
+// persistent blocks, 16-byte loads and bit-sliced counts of cat_stream.cuh.
 #pragma once
 
 #include <climits>
@@ -200,13 +201,25 @@ __device__ __forceinline__ uint32_t cat_nibbles(uint32_t t, uint32_t q) {
   return e | ((tg ^ gg) << 1) | ((qg ^ gg) << 2) | (gg << 3);
 }
 
-// The category plane is read by its own loop (cat_stream.cuh), not through
-// cats/prev.
-struct CatPlane {
-  const uint32_t* cw;
-  long long LW;  // words per row
-};
+// The category word of the byte columns at t, q (any alignment), whose
+// first nb (1..8) are valid; nibbles past nb are unspecified.
+__device__ __forceinline__ uint32_t byte_cats(const uint8_t* t,
+                                              const uint8_t* q, int nb) {
+  uint32_t tlo, thi, qlo, qhi;
+  load8(t, nb, tlo, thi);
+  load8(q, nb, qlo, qhi);
+  return bytes_to_nibbles(cat_bytes(tlo, qlo)) |
+         (bytes_to_nibbles(cat_bytes(thi, qhi)) << 16);
+}
 
+// The category of the one byte column at t, q.
+__device__ __forceinline__ uint32_t byte_cat(const uint8_t* t,
+                                             const uint8_t* q) {
+  return cat_bytes(__ldg(t), __ldg(q)) & 0xfu;
+}
+
+// The byte plane of kernel 8 and of kernel F's byte words, through
+// plane_stats_chunk.  Kernel D reads it through cat_stream.cuh's loop.
 struct BytePlane {
   const uint8_t* t;
   const uint8_t* q;
@@ -216,15 +229,11 @@ struct BytePlane {
                                            long long n) const {
     const long long col = 8 * g;
     const int nb = n - col >= 8 ? 8 : static_cast<int>(n - col);
-    uint32_t tlo, thi, qlo, qhi;
-    load8(t + row * L + col, nb, tlo, thi);
-    load8(q + row * L + col, nb, qlo, qhi);
-    return bytes_to_nibbles(cat_bytes(tlo, qlo)) |
-           (bytes_to_nibbles(cat_bytes(thi, qhi)) << 16);
+    return byte_cats(t + row * L + col, q + row * L + col, nb);
   }
   __device__ __forceinline__ uint32_t prev(long long row, long long g) const {
     const long long i = row * L + 8 * g - 1;
-    return cat_bytes(__ldg(t + i), __ldg(q + i)) & 0xfu;
+    return byte_cat(t + i, q + i);
   }
 };
 

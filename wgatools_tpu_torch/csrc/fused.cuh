@@ -45,7 +45,8 @@
 
 namespace wga {
 
-// One op row of a fused launch: load/store as block_exclusive_scan2 wants.
+// One op row of a fused launch: load/store as block_exclusive_scan2_batched
+// wants.
 struct GroupSumsRow {
   using Elem = Adv2;
   const int* st;
@@ -218,6 +219,12 @@ struct PackedOps {
 
 namespace {
 
+// elements a thread per pass of the op-row scan blocks beside the byte-word
+// and nibble planes (kernel C's category plane takes 8): more raise the
+// registers of the whole kernel and cost its column blocks occupancy
+// (kernel F: 144 us at 4 against 121 at 1 on an H100 SXM at 700 W)
+constexpr int FUSED_SCAN_E = 1;
+
 template <bool CALLER, class Plane, class Ops>
 __global__ void __launch_bounds__(wga::CAT_THREADS)
     fused_kernel(Plane p, const int* __restrict__ lengths,
@@ -225,7 +232,7 @@ __global__ void __launch_bounds__(wga::CAT_THREADS)
                  long long B2) {
   const long long b = blockIdx.x;
   if (b < B2) {
-    wga::block_exclusive_scan2(ops.row(b), ops.a.NOH);
+    wga::block_exclusive_scan2_batched<FUSED_SCAN_E>(ops.row(b), ops.a.NOH);
     return;
   }
   const long long c = b - B2;

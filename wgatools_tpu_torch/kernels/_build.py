@@ -43,7 +43,7 @@ SIGNATURES = {
     "classify_bytes": [_P, _P, _P, _P, _I, _LL, _I],
     "classify_words": [_P, _P, _P, _P, _I, _LL, _I],
     "classify_nibbles": [_P, _P, _P, _P, _I, _LL, _I],
-    "liftover_scan": [_P, _P, _P, _P, _I, _LL, _I],
+    "liftover_scan": [_P, _P, _P, _P, _P, _I, _LL, _I],
     "fused_adv16": [_I, *[_P] * 10, _I, _LL, _I, _LL, _I, _I, _I],
     "fused16": [_I, *[_P] * 9, _I, _LL, _I, _LL, _I],
     "fused_ops": [*[_P] * 8, _I, _LL, _I, _LL, _I],
@@ -143,6 +143,8 @@ def lib():
                 fn.restype = _I
             handle.wga_error_string.argtypes = [_I]
             handle.wga_error_string.restype = ctypes.c_char_p
+            handle.wga_liftover_scan_scratch.argtypes = [_I, _LL]
+            handle.wga_liftover_scan_scratch.restype = _LL
             _lib = handle
         return _lib
 

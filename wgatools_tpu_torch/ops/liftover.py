@@ -77,7 +77,11 @@ def _scan(ops, lens, mode):
     B, N = ops.shape
     t_off = torch.empty((B, N), dtype=torch.int32, device=ops.device)
     q_off = torch.empty((B, N), dtype=torch.int32, device=ops.device)
-    _build.launch("liftover_scan", ops, lens, t_off, q_off, B, N, _MODES[mode])
+    # the long-row path's per-tile totals (none for short rows)
+    scratch = torch.empty(_build.lib().wga_liftover_scan_scratch(B, N),
+                          dtype=torch.int32, device=ops.device)
+    _build.launch("liftover_scan", ops, lens, t_off, q_off, scratch, B, N,
+                  _MODES[mode])
     return t_off, q_off
 
 
