@@ -623,9 +623,13 @@ def gate_plane_kernels(rng, device, gates, times, t0, q0, cw_np, lens_np):
     kernel = {"words": "classify_words", "nibble": "classify_nibbles"}
 
     def gate_all(label, planes, lens, opw, wt, wq, st, sq):
+        """Both modes of the word entry, E, F and every mode of C on the
+        plane kinds given."""
         for caller in (False, True):
             tag = f"{label} caller={caller}"
             for kind, (fn, ref) in stats_fn.items():
+                if kind not in planes:
+                    continue
                 gates.check(kernel[kind], tag, [fn(*planes[kind], lens, caller)],
                             [ref(*planes[kind], lens, caller)])
                 nib = kind == "nibble"
@@ -673,6 +677,18 @@ def gate_plane_kernels(rng, device, gates, times, t0, q0, cw_np, lens_np):
     ms = time_ms(lambda: F.classify_liftover_fused16(
         *planes["words"], d["lens"], d["opw16"], device))
     log(f"fused16 words B={B} L={L}: kernel {ms:.5f} ms")
+    # F's two parts alone: its columns (no op rows) and its op rows (rows
+    # of no columns)
+    no_ops = d["opw16"][:0]
+    no_cols = torch.zeros(B, dtype=torch.int32, device=device)
+    one = d["tn"][:, :1].contiguous()
+    for label, args in (("columns alone (B2=0)", (*planes["nibble"],
+                                                  d["lens"], no_ops)),
+                        ("op rows alone (no columns)", (one, one, no_cols,
+                                                        d["opw16"]))):
+        ms = time_ms(lambda: F.classify_liftover_fused16(*args, device,
+                                                         nibble=True))
+        log(f"fused16 nibbles B={B} L={L}, {label}: kernel {ms:.5f} ms")
     for kind, pl in planes.items():
         for mode, flags in ADV16_MODES:
             words = (d["st"], d["sq"]) if flags.get("raw_sums") else (d["wt"], d["wq"])
@@ -726,7 +742,75 @@ def gate_plane_kernels(rng, device, gates, times, t0, q0, cw_np, lens_np):
         gate_all(f"random {k} B={b} LW={lw} B2={b2} NOH={noh}", r_planes,
                  r_len, words(b2, noh), words(b2, noh), words(b2, noh),
                  words(b2, noh), words(b2, noh))
+    gate_stream_edges(rng, device, gate_all, words)
     return host
+
+
+def gate_stream_edges(rng, device, gate_all, words):
+    """The edges of the byte-word and nibble loops of cat_stream.cuh
+    (kernels E, F, C and D's word entry), on arbitrary words in both modes:
+    LW % 4 in {1, 2, 3} (every row its own 16-byte head); only t, or only
+    q, 1-3 words past an aligned base (t and q bases differ mod 16: every
+    word one lane each); one nibble row of 2^24 + 8k + 3 columns (every
+    warp ends in the same row: block_flush); 100 000 rows of at most 64
+    columns (many row changes per warp); F and C with B2 = 0, B2 < B and
+    B2 > B.  Times E on the long row."""
+    from wgatools_tpu_torch.ops import classify as C
+
+    def ops(b2, noh):
+        return [words(b2, noh) for _ in range(5)]
+
+    for lw, b, b2 in ((1001, 37, 5), (1002, 9, 40), (1003, 20, 20)):
+        planes = {"words": (words(b, lw), words(b, lw)),
+                  "nibble": (words(b, lw), words(b, lw))}
+        lens = up_lengths(rng, device, b, 8 * lw)
+        gate_all(f"stream LW={lw} B={b} B2={b2}", planes, lens,
+                 *ops(b2, int(rng.integers(1, 3000))))
+        for side in ("t", "q"):
+            for off in (1, 2, 3):
+                moved = {kind: (shifted(t, 4 * off), q) if side == "t"
+                         else (t, shifted(q, 4 * off))
+                         for kind, (t, q) in planes.items()}
+                gate_all(f"stream LW={lw} B={b} {side}+{off} words", moved,
+                         lens, *ops(b2, 64))
+    k = int(rng.integers(0, 1000))
+    for n in (1 << 24) + 8 * k + 3, (1 << 24) + 3:  # the timed row last
+        lw = (n + 7) // 8
+        tn, qn = words(1, lw), words(1, lw)
+        qn[0, : lw // 2] = tn[0, : lw // 2]  # a long run of equal columns
+        lens = torch_lengths(device, [n])
+        gate_all(f"stream nibble row of {n} columns", {"nibble": (tn, qn)},
+                 lens, *ops(3, 4096))
+    ms = (time_ms(lambda: C.classify_stat_nibbles(tn, qn, lens)),
+          time_ms(lambda: C.classify_stat_nibbles_ref(tn, qn, lens), reps=5))
+    log(f"classify_nibbles [1, {n}]: kernel {ms[0]:.5f} ms, plain "
+        f"{ms[1]:.5f} ms")
+    del tn, qn
+    b = 100_000
+    lens = up_lengths(rng, device, b, 64)
+    gate_all(f"stream {b} rows of <= 64 columns",
+             {"words": (words(b, 16), words(b, 16)),
+              "nibble": (words(b, 8), words(b, 8))}, lens, *ops(b, 3))
+    b, lw = 64, 1 << 14
+    planes = {"words": (words(b, lw), words(b, lw)),
+              "nibble": (words(b, lw), words(b, lw))}
+    lens = up_lengths(rng, device, b, 8 * lw)
+    for b2 in (0, 17, 200):
+        gate_all(f"stream B={b} LW={lw} B2={b2}", planes, lens,
+                 *ops(b2, 1000))
+
+
+def torch_lengths(device, lengths):
+    import torch
+
+    return torch.tensor(lengths, dtype=torch.int32, device=device)
+
+
+def up_lengths(rng, device, b, cols):
+    """int32 [b] lengths in [-8, cols + 16), the first row full."""
+    lens = rng.integers(-8, cols + 16, b).astype(np.int32)
+    lens[0] = cols
+    return torch_lengths(device, lens.tolist())
 
 
 def gate_fused_ops(rng, device, gates, times, full):

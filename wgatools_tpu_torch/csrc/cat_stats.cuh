@@ -1,10 +1,10 @@
 // Column statistics over a plane of aligned column pairs: the device code
 // shared by kernels A (classify_cat.cu), D and its word entry
 // (classify_bytes.cu), E (classify_nibbles.cu) and the fused kernels C, F
-// and 8 (fused.cuh).  The category plane of A and C and the byte plane of
-// D stream through cat_stream.cuh, which counts its ragged edges with
-// count_word; the nibble plane and the byte planes of F and 8 go through
-// plane_stats_chunk below.
+// and 8 (fused.cuh).  Every plane but kernel 8's streams through the
+// persistent warps of cat_stream.cuh, which count their ragged edges with
+// count_word and cat_nibbles below; kernel 8's byte words alone go
+// through the per-chunk loop below (BytePlane, plane_stats_chunk).
 //
 // Replaces the bodies of wgatools_tpu/ops/classify.py::_kernel_cat,
 // _kernel (byte planes), _kernel_words and _kernel_nibbles.  Every plane is
@@ -12,20 +12,21 @@
 // host 64K (t, q) LUT gives (X=0 EQ=1 I=2 D=4 GG=9; column j of the group in
 // bits [4j, 4j+4)), and counted by count_word.  Output is int32 [B, 8]
 // per-record counters (matched, mismatched, ins_size, del_size, ins_events,
-// del_events, gap/gap, runs).  The planes:
-//   CatPlane     int32 [B, LW] category words, read as they are (kernels A
-//                and C, cat_stream.cuh);
-//   BytePlane    uint8 t, q [B, L] of any width and base alignment; an
-//                int32 [B, LW] byte-word plane is the same buffer with
-//                L = 4 LW (kernels F and 8 here, kernel D in cat_stream.cuh);
-//   NibblePlane  int32 t, q [B, LW] 4-bit dictionary codes, gap = 0, code
-//                equality = byte equality (kernel E).
+// del_events, gap/gap, runs).  The planes (cat_stream.cuh unless said):
+//   CatPlane      int32 [B, LW] category words, read as they are (kernels
+//                 A and C);
+//   ByteStream    uint8 t, q [B, L] of any width and base alignment; an
+//                 int32 [B, LW] byte-word plane is the same buffer with
+//                 L = 4 LW (kernels D, F and C);
+//   NibbleStream  int32 t, q [B, LW] 4-bit dictionary codes, gap = 0, code
+//                 equality = byte equality (kernels E, F and C);
+//   BytePlane     kernel 8's byte words, here.
 //
 // Bound: memory.  0.5 B per column (cat), 1 B (nibbles) or 2 B (bytes)
 // against a few integer ops and seven __popc per 8 columns: 128 x 2^20
 // columns of cat plane is 64 MiB, about 20 us at 3.35 TB/s.
 //
-// Design: a block owns CAT_CHUNK_GROUPS groups of 8 columns of one row,
+// Design of the per-chunk loop: a block owns CAT_CHUNK_GROUPS groups of 8 columns of one row,
 // each thread a strided subset of them (neighbouring threads on neighbouring
 // groups).  Columns >= lengths[b] are masked here, so none of the TPU
 // kernels' gap-padding corrections (_finish_stats, the edge side output,
@@ -35,11 +36,10 @@
 // adds them with integer atomics into a zeroed [B, 8] buffer: exact in any
 // order, so every counter is linear per chunk (mismatched = valid - (EQ|GG)
 // - I - D, caller-mode matched = bit0 - GG).
-// Left for later on the nibble plane and F's and 8's byte words: the
-// persistent blocks, 16-byte loads and bit-sliced counts of cat_stream.cuh.
+// Left for later on kernel 8's byte words: the persistent blocks, 16-byte
+// loads and bit-sliced counts of cat_stream.cuh.
 #pragma once
 
-#include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -218,8 +218,7 @@ __device__ __forceinline__ uint32_t byte_cat(const uint8_t* t,
   return cat_bytes(__ldg(t), __ldg(q)) & 0xfu;
 }
 
-// The byte plane of kernel 8 and of kernel F's byte words, through
-// plane_stats_chunk.  Kernel D reads it through cat_stream.cuh's loop.
+// Kernel 8's byte plane, through plane_stats_chunk.
 struct BytePlane {
   const uint8_t* t;
   const uint8_t* q;
@@ -234,22 +233,6 @@ struct BytePlane {
   __device__ __forceinline__ uint32_t prev(long long row, long long g) const {
     const long long i = row * L + 8 * g - 1;
     return byte_cat(t + i, q + i);
-  }
-};
-
-struct NibblePlane {
-  const uint32_t* t;
-  const uint32_t* q;
-  long long LW;  // words per row
-  __device__ __forceinline__ long long cols() const { return 8 * LW; }
-  __device__ __forceinline__ uint32_t cats(long long row, long long g,
-                                           long long) const {
-    const long long i = row * LW + g;
-    return cat_nibbles(__ldg(t + i), __ldg(q + i));
-  }
-  __device__ __forceinline__ uint32_t prev(long long row, long long g) const {
-    const long long i = row * LW + g - 1;
-    return cat_nibbles(__ldg(t + i) >> 28, __ldg(q + i) >> 28) & 0xfu;
   }
 };
 
@@ -286,40 +269,3 @@ __device__ __forceinline__ void plane_stats_chunk(
 }
 
 }  // namespace wga
-
-namespace {
-
-// One block per (row, chunk), flattened into x, so that a batch of many
-// short records is not held to gridDim.y's 65535.
-template <bool CALLER, class Plane>
-__global__ void __launch_bounds__(wga::CAT_THREADS)
-    plane_stats_kernel(Plane p, const int* __restrict__ lengths,
-                       int* __restrict__ out, long long nchunks) {
-  const long long b = blockIdx.x;
-  wga::plane_stats_chunk<CALLER>(p, lengths, out, b / nchunks, b % nchunks);
-}
-
-// Launches the counters of B rows of plane p into the zeroed int32 [B, 8]
-// out.  Returns cudaGetLastError().
-template <class Plane>
-int launch_plane_stats(const Plane& p, long long cols, const void* lengths,
-                       void* out, int B, int caller, void* stream) {
-  if (B <= 0 || cols <= 0) return static_cast<int>(cudaGetLastError());
-  const long long nchunks = wga::stat_chunks(cols);
-  const long long blocks = static_cast<long long>(B) * nchunks;
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const auto* n = static_cast<const int*>(lengths);
-  auto* o = static_cast<int*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(blocks));
-  if (caller) {
-    plane_stats_kernel<true, Plane>
-        <<<grid, wga::CAT_THREADS, 0, s>>>(p, n, o, nchunks);
-  } else {
-    plane_stats_kernel<false, Plane>
-        <<<grid, wga::CAT_THREADS, 0, s>>>(p, n, o, nchunks);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace

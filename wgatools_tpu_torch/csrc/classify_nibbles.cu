@@ -9,23 +9,28 @@
 // and a gap is a zero nibble.
 //
 // Memory-bound: 1 B read per column (half the byte planes) against
-// 3.35 TB/s.  Design: cat_stats.cuh's NibblePlane; each thread turns a word
-// pair into kernel A's one-hot category word with SWAR (nibble equality,
-// zero tests) and counts it with count_word.  Columns >= lengths[b] are
-// masked here, so the TPU kernel's 0/0 padding contract and its
-// corrections do not exist.
+// 3.35 TB/s.  Design: cat_stream.cuh's loop on the nibble plane.  About
+// (SMs x resident blocks) persistent blocks whose warps stream contiguous
+// ranges of (row, 2048-column segment) pairs with 16-byte loads of both
+// planes, one segment in flight behind the one being counted; per uint4
+// pair three zero-nibble tests per word, merged so that one __popc counts
+// 32 columns.  Row heads before a 16-byte boundary, tails, partial last
+// words and rows whose t and q bases differ mod 16 go through cat_nibbles
+// and count_word.  Columns >= lengths[b] are masked here, so the TPU
+// kernel's 0/0 padding contract and its corrections do not exist.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "cat_stats.cuh"
+#include "cat_stream.cuh"
 
 // out must be zeroed by the caller.  Returns cudaGetLastError().
 extern "C" int wga_classify_nibbles(const void* tw, const void* qw,
                                     const void* lengths, void* out, int B,
                                     long long LW, int caller, void* stream) {
-  const wga::NibblePlane p{static_cast<const uint32_t*>(tw),
-                           static_cast<const uint32_t*>(qw), LW};
-  return launch_plane_stats(p, 8 * LW, lengths, out, B, caller, stream);
+  const wga::NibbleStream p{static_cast<const uint32_t*>(tw),
+                            static_cast<const uint32_t*>(qw), LW};
+  return launch_stream_stats<wga::NS_MIN_BLOCKS>(p, B, lengths, out, caller,
+                                                 stream);
 }

@@ -1,17 +1,21 @@
 // The fused classify + op-scan body shared by kernel C (fused_adv16.cu),
 // kernel F (fused16.cu) and kernel 8 (fused_ops.cu).
 //
-// One launch reads a column plane (cat_stats.cuh: CatPlane, NibblePlane or
-// BytePlane over byte words) and the op words of a matching table, and
-// writes the [B, 8] counters of the plane and the exclusive per-row scans
-// of the op words.  The first B2 blocks each scan one op row
-// (row_scan.cuh); the rest count the plane's column chunks, or, on a
-// category plane, are kernel A's persistent blocks (cat_stream.cuh).  The
-// scan blocks come first so that they start while the columns stream.  B2
-// may differ from B; the two parts never mix rows.  The TPU kernels carried
-// each row's scan across a sequential column grid in scratch, in three
-// formulations (scan_mode vpu / mm / once, chunk, tiles); a block walking
-// its whole row gives the same sums, so those choices have no counterpart.
+// One launch reads a column plane and the op words of a matching table,
+// and writes the [B, 8] counters of the plane and the exclusive per-row
+// scans of the op words.  The first B2 blocks each scan one op row
+// (row_scan.cuh); the rest count the columns.  On a category plane (C's
+// catmode) they are kernel A's persistent blocks (cat_stream.cuh:
+// cat_stream_warp); on byte words and nibble words (F, and C's other
+// modes) the persistent blocks of kernels D and E (cat_stream.cuh:
+// stream_warp); kernel 8's byte words alone keep the per-chunk loop
+// (cat_stats.cuh: BytePlane, plane_stats_chunk), one block per column
+// chunk.  The scan blocks come first so that they start while the columns
+// stream.  B2 may differ from B; the two parts never mix rows.  The TPU
+// kernels carried each row's scan across a sequential column grid in
+// scratch, in three formulations (scan_mode vpu / mm / once, chunk,
+// tiles); a block walking its whole row gives the same sums, so those
+// choices have no counterpart.
 //
 // The op words (int32 [B2, NOH] per direction, or one packed plane, or
 // kernel 8's op table):
@@ -45,7 +49,7 @@
 
 namespace wga {
 
-// One op row of a fused launch: load/store as block_exclusive_scan2_batched
+// One op row of a fused launch: load/store as block_exclusive_scan2_runs
 // wants.
 struct GroupSumsRow {
   using Elem = Adv2;
@@ -219,11 +223,13 @@ struct PackedOps {
 
 namespace {
 
-// elements a thread per pass of the op-row scan blocks beside the byte-word
-// and nibble planes (kernel C's category plane takes 8): more raise the
-// registers of the whole kernel and cost its column blocks occupancy
-// (kernel F: 144 us at 4 against 121 at 1 on an H100 SXM at 700 W)
-constexpr int FUSED_SCAN_E = 1;
+// consecutive elements a thread per pass of the op-row scan blocks
+// (block_exclusive_scan2_runs) of kernels C and F, and of kernel 8, whose
+// per-chunk column blocks share the scan's registers: at 8 they lose more
+// occupancy in its uint8 ops + int32 lens form than the scan gains, and 4
+// is the faster in both op forms
+constexpr int SCAN_V = 8;
+constexpr int FUSED_OPS_SCAN_V = 4;
 
 template <bool CALLER, class Plane, class Ops>
 __global__ void __launch_bounds__(wga::CAT_THREADS)
@@ -232,15 +238,16 @@ __global__ void __launch_bounds__(wga::CAT_THREADS)
                  long long B2) {
   const long long b = blockIdx.x;
   if (b < B2) {
-    wga::block_exclusive_scan2_batched<FUSED_SCAN_E>(ops.row(b), ops.a.NOH);
+    wga::block_exclusive_scan2_runs<FUSED_OPS_SCAN_V, wga::CAT_THREADS>(
+        ops.row(b), ops.a.NOH);
     return;
   }
   const long long c = b - B2;
   wga::plane_stats_chunk<CALLER>(p, lengths, stats, c / nchunks, c % nchunks);
 }
 
-// Launches plane p's counters over B rows of `cols` columns into the
-// zeroed int32 [B, 8] stats, and the scans of B2 op rows.  Returns
+// Kernel 8's launch: plane p's counters over B rows of `cols` columns into
+// the zeroed int32 [B, 8] stats, and the scans of B2 op rows.  Returns
 // cudaGetLastError().
 template <class Plane, class Ops>
 int launch_fused(const Plane& p, long long cols, const void* lengths,
@@ -265,10 +272,9 @@ int launch_fused(const Plane& p, long long cols, const void* lengths,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same launch on a category plane: B2 scan blocks (E = 8 elements a
-// thread per pass), then about (SMs x resident blocks) persistent column
-// blocks whose warps stream contiguous ranges of (row, segment) pairs
-// (cat_stream.cuh).
+// The same launch on a category plane: B2 scan blocks, then about (SMs x
+// resident blocks) persistent column blocks whose warps stream contiguous
+// ranges of (row, segment) pairs (cat_stream.cuh).
 template <bool CALLER, class Ops>
 __global__ void __launch_bounds__(wga::CS_THREADS, wga::CS_MIN_BLOCKS)
     fused_cat_kernel(wga::CatPlane p, const int* __restrict__ lengths,
@@ -276,7 +282,8 @@ __global__ void __launch_bounds__(wga::CS_THREADS, wga::CS_MIN_BLOCKS)
                      unsigned long long segs, long long B2) {
   const long long b = blockIdx.x;
   if (b < B2) {
-    wga::block_exclusive_scan2_batched<8>(ops.row(b), ops.a.NOH);
+    wga::block_exclusive_scan2_runs<SCAN_V, wga::CS_THREADS>(ops.row(b),
+                                                           ops.a.NOH);
     return;
   }
   constexpr int WARPS = wga::CS_THREADS / 32;
@@ -296,17 +303,13 @@ int launch_fused_cat(const wga::CatPlane& p, const void* lengths, void* stats,
   if (segs >= (1ull << 32)) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  const long long scan_rows = (B2 > 0 && ops.a.NOH > 0) ? B2 : 0;
   long long col_blocks = 0;
-  if (segs > 0) {
-    int resident = 0;
-    const cudaError_t err =
-        caller ? wga::resident_blocks(fused_cat_kernel<true, Ops>, &resident)
-               : wga::resident_blocks(fused_cat_kernel<false, Ops>, &resident);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long long need = static_cast<long long>((segs + 7) / 8);
-    col_blocks = need < resident ? need : resident;
-  }
+  const cudaError_t err =
+      caller ? wga::stream_grid(fused_cat_kernel<true, Ops>, segs, &col_blocks)
+             : wga::stream_grid(fused_cat_kernel<false, Ops>, segs,
+                                &col_blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long scan_rows = (B2 > 0 && ops.a.NOH > 0) ? B2 : 0;
   const long long blocks = scan_rows + col_blocks;
   if (blocks == 0) return static_cast<int>(cudaGetLastError());
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -324,27 +327,95 @@ int launch_fused_cat(const wga::CatPlane& p, const void* lengths, void* stats,
   return static_cast<int>(cudaGetLastError());
 }
 
+// resident blocks per SM the registers of the launch beside streamed
+// byte-word and nibble planes must allow
+constexpr int FS_MIN_BLOCKS = 2;
+
+// The same launch on a streamed plane (wga::ByteStream or
+// wga::NibbleStream): B2 scan blocks, then about (SMs x resident blocks)
+// persistent column blocks whose warps take chunks of (row, segment) pairs
+// from the zeroed counter (SegChunks) and whose block ends in block_flush
+// (cat_stream.cuh).
+template <bool CALLER, class Plane, class Ops>
+__global__ void __launch_bounds__(wga::CS_THREADS, FS_MIN_BLOCKS)
+    fused_stream_kernel(Plane p, const int* __restrict__ lengths,
+                        int* __restrict__ stats, unsigned* counter, Ops ops,
+                        unsigned nseg, unsigned segs, long long B2) {
+  if (static_cast<long long>(blockIdx.x) < B2) {
+    wga::block_exclusive_scan2_runs<SCAN_V, wga::CS_THREADS>(
+        ops.row(blockIdx.x), ops.a.NOH);
+    return;
+  }
+  wga::block_flush<CALLER>(
+      wga::stream_warp<CALLER>(p, lengths, stats, nseg,
+                               wga::SegChunks{counter, segs, 0}),
+      stats);
+}
+
+// scratch: one uint32 word, any contents; the launch zeroes it on the
+// stream and its column warps count their chunks in it.
+template <class Plane, class Ops>
+int launch_fused_stream(const Plane& p, const void* lengths, void* stats,
+                        void* scratch, int B, const Ops& ops, int B2,
+                        int caller, void* stream) {
+  unsigned long long segs = 0;
+  cudaError_t err = wga::stream_segs(p, B, &segs);
+  long long col_blocks = 0;
+  if (err == cudaSuccess) {
+    err = caller ? wga::stream_grid(fused_stream_kernel<true, Plane, Ops>,
+                                    segs, &col_blocks)
+                 : wga::stream_grid(fused_stream_kernel<false, Plane, Ops>,
+                                    segs, &col_blocks);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long scan_rows = (B2 > 0 && ops.a.NOH > 0) ? B2 : 0;
+  const long long blocks = scan_rows + col_blocks;
+  if (blocks == 0) return static_cast<int>(cudaGetLastError());
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const auto* n = static_cast<const int*>(lengths);
+  auto* o = static_cast<int*>(stats);
+  auto* counter = static_cast<unsigned*>(scratch);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (col_blocks > 0) {
+    err = cudaMemsetAsync(counter, 0, sizeof(unsigned), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const auto nseg = static_cast<unsigned>(p.segs_per_row());
+  const auto sg = static_cast<unsigned>(segs);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  if (caller) {
+    fused_stream_kernel<true, Plane, Ops><<<grid, wga::CS_THREADS, 0, s>>>(
+        p, n, o, counter, ops, nseg, sg, scan_rows);
+  } else {
+    fused_stream_kernel<false, Plane, Ops><<<grid, wga::CS_THREADS, 0, s>>>(
+        p, n, o, counter, ops, nseg, sg, scan_rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Plane kinds of the fused entry points.
 constexpr int PLANE_WORDS = 0;   // int32 byte words, 4 columns per word
 constexpr int PLANE_NIBBLE = 1;  // int32 nibble words, 8 columns per word
 constexpr int PLANE_CAT = 2;     // one int32 category plane, 8 per word
 
-// Runs launch_fused on the plane kind `plane` built from tw, qw, LW.
+// Launches the fused kernel of the plane kind `plane` built from tw, qw,
+// LW (kernels C and F); scratch as launch_fused_stream's.
 template <class Ops>
 int launch_fused_plane(int plane, const void* tw, const void* qw,
-                       long long LW, const void* lengths, void* stats, int B,
-                       const Ops& ops, int B2, int caller, void* stream) {
+                       long long LW, const void* lengths, void* stats,
+                       void* scratch, int B, const Ops& ops, int B2,
+                       int caller, void* stream) {
   const auto* t = static_cast<const uint32_t*>(tw);
   const auto* q = static_cast<const uint32_t*>(qw);
   switch (plane) {
     case PLANE_WORDS:
-      return launch_fused(
-          wga::BytePlane{reinterpret_cast<const uint8_t*>(t),
-                         reinterpret_cast<const uint8_t*>(q), 4 * LW},
-          4 * LW, lengths, stats, B, ops, B2, caller, stream);
+      return launch_fused_stream(
+          wga::ByteStream{reinterpret_cast<const uint8_t*>(t),
+                          reinterpret_cast<const uint8_t*>(q), 4 * LW},
+          lengths, stats, scratch, B, ops, B2, caller, stream);
     case PLANE_NIBBLE:
-      return launch_fused(wga::NibblePlane{t, q, LW}, 8 * LW, lengths, stats,
-                          B, ops, B2, caller, stream);
+      return launch_fused_stream(wga::NibbleStream{t, q, LW}, lengths, stats,
+                                 scratch, B, ops, B2, caller, stream);
     case PLANE_CAT:
       return launch_fused_cat(wga::CatPlane{t, LW}, lengths, stats, B, ops,
                               B2, caller, stream);

@@ -8,8 +8,11 @@
 // both directions (op 2k at *_even[:, k], op 2k+1 at *_odd[:, k]).
 //
 // Memory-bound: 1-2 B per column of plane plus 4 B in and 16 B out per op
-// pair against 3.35 TB/s.  The same launch as kernel C (fused.cuh); only
-// the op-word decode differs.
+// pair against 3.35 TB/s.  The same launch as kernel C's byte-word and
+// nibble modes (fused.cuh: launch_fused_stream): B2 op-row scan blocks,
+// then persistent column blocks on cat_stream.cuh's loop of the plane (the
+// loop of kernel D's word entry, or of kernel E); only the op-word decode
+// differs.
 
 #include <cstdint>
 
@@ -17,18 +20,19 @@
 
 #include "fused.cuh"
 
-// plane: 0 byte words, 1 nibble words.  stats must be zeroed by the caller.
-// Returns cudaGetLastError().
+// plane: 0 byte words, 1 nibble words.  stats: int32 [B, 8] zeroed by the
+// caller; scratch: one int32 word, any contents.  Returns
+// cudaGetLastError().
 extern "C" int wga_fused16(int plane, const void* tw, const void* qw,
                            const void* lengths, const void* opw, void* stats,
-                           void* te, void* to, void* qe, void* qo, int B,
-                           long long LW, int B2, long long NOH, int caller,
-                           void* stream) {
+                           void* scratch, void* te, void* to, void* qe,
+                           void* qo, int B, long long LW, int B2,
+                           long long NOH, int caller, void* stream) {
   if (plane == PLANE_CAT) return static_cast<int>(cudaErrorInvalidValue);
   const wga::OpTable a{static_cast<const int*>(opw), nullptr,
                        static_cast<int*>(te),       static_cast<int*>(to),
                        static_cast<int*>(qe),       static_cast<int*>(qo),
                        NOH};
-  return launch_fused_plane(plane, tw, qw, LW, lengths, stats, B,
+  return launch_fused_plane(plane, tw, qw, LW, lengths, stats, scratch, B,
                             wga::Packed16{a}, B2, caller, stream);
 }

@@ -12,11 +12,10 @@
 //
 // Memory-bound: 0.5-2 B per column of plane plus 8-16 B per op word pair
 // against 3.35 TB/s.  ONE launch (fused.cuh): B2 op-row scan blocks, then
-// the column chunks; on the category plane (catmode) the scans take E = 8
-// elements a thread per pass and the columns stream through kernel A's
-// persistent warps (cat_stream.cuh).  Left for later: TMA loads, the
-// persistent loop on the byte-word and nibble planes, a decoupled
-// look-back scan.
+// persistent column blocks: on the category plane (catmode) the columns
+// stream through kernel A's warps, on byte words and nibble words through
+// kernel D's or E's (cat_stream.cuh).  Left for later: TMA loads, a
+// decoupled look-back scan.
 
 #include <cstdint>
 
@@ -28,12 +27,13 @@
 // plane (tw; qw unused).  raw_sums: wt, wq are group sums and te, qe
 // receive the anchors; otherwise they are adv16 pair words, te, qe receive
 // the even offsets and, with emit_odd, to, qo the odd ones.  Unused output
-// pointers may be null.  stats must be zeroed by the caller.  Returns
-// cudaGetLastError().
+// pointers may be null.  stats: int32 [B, 8] zeroed by the caller;
+// scratch: one int32 word, any contents (byte and nibble words use it).
+// Returns cudaGetLastError().
 extern "C" int wga_fused_adv16(int plane, const void* tw, const void* qw,
                                const void* lengths, const void* wt,
-                               const void* wq, void* stats, void* te,
-                               void* to, void* qe, void* qo, int B,
+                               const void* wq, void* stats, void* scratch,
+                               void* te, void* to, void* qe, void* qo, int B,
                                long long LW, int B2, long long NOH,
                                int caller, int raw_sums, int emit_odd,
                                void* stream) {
@@ -45,13 +45,13 @@ extern "C" int wga_fused_adv16(int plane, const void* tw, const void* qw,
                        static_cast<int*>(qo),
                        NOH};
   if (raw_sums) {
-    return launch_fused_plane(plane, tw, qw, LW, lengths, stats, B,
+    return launch_fused_plane(plane, tw, qw, LW, lengths, stats, scratch, B,
                               wga::GroupSums{a}, B2, caller, stream);
   }
   if (emit_odd) {
-    return launch_fused_plane(plane, tw, qw, LW, lengths, stats, B,
+    return launch_fused_plane(plane, tw, qw, LW, lengths, stats, scratch, B,
                               wga::PairWords<true>{a}, B2, caller, stream);
   }
-  return launch_fused_plane(plane, tw, qw, LW, lengths, stats, B,
+  return launch_fused_plane(plane, tw, qw, LW, lengths, stats, scratch, B,
                             wga::PairWords<false>{a}, B2, caller, stream);
 }

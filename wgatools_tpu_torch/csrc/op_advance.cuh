@@ -30,7 +30,7 @@ __device__ __forceinline__ Adv2 op_advance(uint32_t op, uint32_t len) {
 }
 
 // One row of uint8 ops + int32 lens, scanned into exclusive int32 t_off,
-// q_off (block_exclusive_scan2_batched's load/store; kernel 8's op rows).
+// q_off (block_exclusive_scan2_runs's load/store; kernel 8's op rows).
 template <bool CHAIN>
 struct OpsLensRow {
   using Elem = Adv2;

@@ -3,12 +3,11 @@
 // (liftover_scan.cu) builds its warp-per-row and tiled scans on the warp
 // scan below.
 //
-// The block walks the row in passes of E x blockDim.x elements and carries
+// The block walks the row in passes of V x blockDim.x elements and carries
 // the running totals in registers (the TPU kernels carried them in a
-// scratch across the sequential column grid).  Within a pass: an inclusive
-// warp-shuffle scan per warp and element, then the warp totals through
-// shared memory.  Sums are uint32_t, so they wrap modulo 2^32 exactly like
-// the int32 adds of torch.cumsum(..., dtype=torch.int32).
+// scratch across the sequential column grid).  Sums are uint32_t, so they
+// wrap modulo 2^32 exactly like the int32 adds of
+// torch.cumsum(..., dtype=torch.int32).
 #pragma once
 
 #include <cstdint>
@@ -37,59 +36,77 @@ __device__ __forceinline__ void warp_inclusive_scan2(uint32_t& t,
 
 // ops.load(i) gives element i's advances as an Elem (Adv2 or a struct
 // with the same t and q members); ops.store(i, elem, ex_t, ex_q) receives
-// the sums of the advances before it.  E elements a thread per pass, all
-// loaded before any is scanned, so that a pass waits for memory once and
-// passes two barriers.  Element base + k blockDim.x + threadIdx.x is the
-// thread's k-th of the pass.  blockDim.x must be a multiple of 32 and every
-// thread of the block must call this.
-template <int E, class Ops>
-__device__ __forceinline__ void block_exclusive_scan2_batched(const Ops& ops,
-                                                              long long n) {
-  __shared__ uint32_t tile_t[E][32], tile_q[E][32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+// the sums of the advances before it.  Each thread owns V consecutive
+// elements of a pass of V x THREADS (blockDim.x == THREADS): loaded
+// coalesced, turned through shared memory into runs, summed along each run,
+// and one warp scan of the runs' totals a pass, so that a long row is not
+// bound by a chain of shuffles and barriers per element.  Shared indices
+// are padded by one word per 32 so that neither the coalesced nor the run
+// order has bank conflicts.  Every thread of the block must call this.
+template <int V, int THREADS, class Ops>
+__device__ __forceinline__ void block_exclusive_scan2_runs(const Ops& ops,
+                                                           long long n) {
+  constexpr int TILE = V * THREADS;
+  constexpr int WARPS = THREADS / 32;
+  __shared__ uint32_t sh_t[TILE + TILE / 32], sh_q[TILE + TILE / 32];
+  __shared__ uint32_t warp_t[WARPS], warp_q[WARPS];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const auto pad = [](int x) { return x + (x >> 5); };
   uint32_t carry_t = 0, carry_q = 0;
-  for (long long base = 0; base < n; base += E * static_cast<long long>(blockDim.x)) {
-    typename Ops::Elem e[E];
-    uint32_t st[E], sq[E];
+  for (long long base = 0; base < n; base += TILE) {
+    typename Ops::Elem e[V];
 #pragma unroll
-    for (int k = 0; k < E; ++k) {
-      const long long i = base + k * static_cast<long long>(blockDim.x) + threadIdx.x;
-      e[k] = i < n ? ops.load(i) : typename Ops::Elem{};
+    for (int j = 0; j < V; ++j) {
+      const long long i = base + j * THREADS + tid;
+      e[j] = i < n ? ops.load(i) : typename Ops::Elem{};
+      sh_t[pad(j * THREADS + tid)] = e[j].t;
+      sh_q[pad(j * THREADS + tid)] = e[j].q;
+    }
+    __syncthreads();
+    // the thread's run, elements [V tid, V tid + V) of the pass
+    uint32_t run_t[V], run_q[V], tot_t = 0, tot_q = 0;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      run_t[j] = tot_t;
+      run_q[j] = tot_q;
+      tot_t += sh_t[pad(V * tid + j)];
+      tot_q += sh_q[pad(V * tid + j)];
+    }
+    uint32_t inc_t = tot_t, inc_q = tot_q;
+    warp_inclusive_scan2(inc_t, inc_q);
+    if (lane == 31) {
+      warp_t[warp] = inc_t;
+      warp_q[warp] = inc_q;
+    }
+    __syncthreads();
+    uint32_t pre_t = carry_t + inc_t - tot_t, pre_q = carry_q + inc_q - tot_q;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const uint32_t a = warp_t[w], b = warp_q[w];
+      if (w < warp) {
+        pre_t += a;
+        pre_q += b;
+      }
+      carry_t += a;
+      carry_q += b;
     }
 #pragma unroll
-    for (int k = 0; k < E; ++k) {
-      st[k] = e[k].t;
-      sq[k] = e[k].q;
-      warp_inclusive_scan2(st[k], sq[k]);
-      if (lane == 31) {
-        tile_t[k][warp] = st[k];
-        tile_q[k][warp] = sq[k];
-      }
+    for (int j = 0; j < V; ++j) {
+      sh_t[pad(V * tid + j)] = pre_t + run_t[j];
+      sh_q[pad(V * tid + j)] = pre_q + run_q[j];
     }
     __syncthreads();
 #pragma unroll
-    for (int k = 0; k < E; ++k) {
-      uint32_t pre_t = 0, pre_q = 0, tot_t = 0, tot_q = 0;
-      for (int w = 0; w < nwarps; ++w) {
-        const uint32_t a = tile_t[k][w], b = tile_q[k][w];
-        if (w < warp) {
-          pre_t += a;
-          pre_q += b;
-        }
-        tot_t += a;
-        tot_q += b;
-      }
-      const long long i = base + k * static_cast<long long>(blockDim.x) + threadIdx.x;
+    for (int j = 0; j < V; ++j) {
+      const long long i = base + j * THREADS + tid;
       if (i < n) {
-        ops.store(i, e[k], carry_t + pre_t + st[k] - e[k].t,
-                  carry_q + pre_q + sq[k] - e[k].q);
+        ops.store(i, e[j], sh_t[pad(j * THREADS + tid)],
+                  sh_q[pad(j * THREADS + tid)]);
       }
-      carry_t += tot_t;
-      carry_q += tot_q;
     }
-    __syncthreads();  // the tile totals are rewritten by the next pass
+    __syncthreads();  // shared memory is rewritten by the next pass
   }
 }
 

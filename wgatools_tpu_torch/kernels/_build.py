@@ -44,8 +44,8 @@ SIGNATURES = {
     "classify_words": [_P, _P, _P, _P, _I, _LL, _I],
     "classify_nibbles": [_P, _P, _P, _P, _I, _LL, _I],
     "liftover_scan": [_P, _P, _P, _P, _P, _I, _LL, _I],
-    "fused_adv16": [_I, *[_P] * 10, _I, _LL, _I, _LL, _I, _I, _I],
-    "fused16": [_I, *[_P] * 9, _I, _LL, _I, _LL, _I],
+    "fused_adv16": [_I, *[_P] * 11, _I, _LL, _I, _LL, _I, _I, _I],
+    "fused16": [_I, *[_P] * 10, _I, _LL, _I, _LL, _I],
     "fused_ops": [*[_P] * 8, _I, _LL, _I, _LL, _I],
 }
 

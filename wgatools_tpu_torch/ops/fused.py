@@ -143,6 +143,13 @@ def _check_fused(name, kind, tw, qw, lengths, op_planes, scan_mode):
     return B, LW, B2, NOH
 
 
+def _stats_and_scratch(B, device):
+    """The zeroed int32 [B, 8] stats of kernels C and F, and the one int32
+    word of scratch their launch zeroes and counts its work in."""
+    return (torch.zeros((B, N_STATS), dtype=torch.int32, device=device),
+            torch.empty(1, dtype=torch.int32, device=device))
+
+
 def _to_device(device, *arrays):
     return [None if a is None else torch.as_tensor(a, device=device)
             for a in arrays]
@@ -167,11 +174,11 @@ def classify_liftover_fused16(tw, qw, lengths, opw16, device, caller=False,
     kind = _NIBBLE if nibble else _WORDS
     B, LW, B2, NOH = _check_fused("classify_liftover_fused16", kind, tw, qw,
                                   lengths, (opw16,), scan_mode)
-    stats = torch.zeros((B, N_STATS), dtype=torch.int32, device=device)
+    stats, scratch = _stats_and_scratch(B, device)
     offs = [torch.empty((B2, NOH), dtype=torch.int32, device=device)
             for _ in range(4)]
-    _build.launch("fused16", kind, tw, qw, lengths, opw16, stats, *offs,
-                  B, LW, B2, NOH, int(caller))
+    _build.launch("fused16", kind, tw, qw, lengths, opw16, stats, scratch,
+                  *offs, B, LW, B2, NOH, int(caller))
     return (stats, *offs)
 
 
@@ -203,13 +210,13 @@ def classify_liftover_fused_adv16(tw, qw, lengths, wt, wq, device,
         )
     B, LW, B2, NOH = _check_fused("classify_liftover_fused_adv16", kind, tw,
                                   qw, lengths, (wt, wq), scan_mode)
-    stats = torch.zeros((B, N_STATS), dtype=torch.int32, device=device)
+    stats, scratch = _stats_and_scratch(B, device)
     offs = [torch.empty((B2, NOH), dtype=torch.int32, device=device)
             for _ in range(4 if emit_odd else 2)]
     te, to, qe, qo = offs if emit_odd else (offs[0], None, offs[1], None)
     _build.launch("fused_adv16", kind, tw, qw, lengths, wt, wq, stats,
-                  te, to, qe, qo, B, LW, B2, NOH, int(caller), int(raw_sums),
-                  int(emit_odd))
+                  scratch, te, to, qe, qo, B, LW, B2, NOH, int(caller),
+                  int(raw_sums), int(emit_odd))
     return (stats, *offs)
 
 
