@@ -40,7 +40,20 @@ Builds the port's CUDA kernels from wgatools_tpu_torch/csrc/ and then:
    reduce_scatter + carry) and the sequence-parallel scan of 8 rows x 2^22
    ops.  One rank shows that the collectives run on NCCL and that the
    shards' carries and merges are right when there is one shard; the
-   multi-rank semantics are held on the CPU with gloo (tests).
+   multi-rank semantics are held on the CPU with gloo (tests);
+10. `distributed`: the distributed modes (WGA_TPU_DIST) as users launch
+   them, N = min(cards, 4) processes of `python -m wgatools_tpu_torch`,
+   one card each, merging over NCCL (also at N = 1: a group of one rank
+   runs the same collectives): `stat` and `call -s` on the stat and call
+   MAFs without and with a maf-index manifest, `maf2paf`, `maf2chain`,
+   `stat -f paf`, `paf2chain`, `chain2paf`, `pafcov`, `validate -f`,
+   `filter -f paf -a` and `dotplot -m overview` on the earlier phases'
+   files (with N > 1, `maf2paf` and `maf2chain` again with every record
+   column-split over the ranks).  Every rank must exit 0 and log its NCCL
+   init, only rank 0 may create a file, none may write to stdout, and rank
+   0's files must equal the host engine's bytes.  Each rank logs its
+   kernel launches at -v; `call -s` runs kernel A on the ranks' cards, as
+   the serial `call` does, and its ranks must have launched it.
 
 Launch counts are reset before each tool phase and read after it: every
 kernel of that phase's path must have launched there.  With --profile,
@@ -103,6 +116,15 @@ CALL_RECORDS, CALL_COLUMNS = 4, 10_000_003
 SHARD_OPS = 1 << 15
 GENOME_LEN, N_SPANS = 1 << 28, 1_000_000
 SP_ROWS, SP_OPS = 8, 1 << 22
+# the distributed phase: ranks (one card each), modes run at once, the
+# giant-record split (bytes of MAF text) of its second maf2paf and
+# maf2chain runs, and how long one mode's ranks may take
+MAX_RANKS = 4
+DIST_JOBS = 4
+DIST_GIANT_SPLIT = 262_144
+DIST_TIMEOUT_S = 300
+# the kernel launches the distributed phase's rank processes logged
+RANK_LAUNCHES = {}
 # kernel C's modes besides bench.py's (catmode, raw sums): label, flags
 ADV16_MODES = (
     ("pairs+odd", dict()),
@@ -1152,13 +1174,21 @@ def file_digest(path):
     return os.path.getsize(path), h.hexdigest()
 
 
-def compare_with_host(name, got_paths, host_fn, secs):
-    """Run host_fn(paths) (the host engine writing to files beside each
-    port output), then compare every pair of files by size and SHA-256."""
-    want_paths = [p + ".host" for p in got_paths]
+def run_host(got_paths, host_fn):
+    """Run host_fn(paths), the host engine writing to files beside each
+    port output; returns its wall in seconds."""
     t0 = time.perf_counter()
-    host_fn(want_paths)
-    host_secs = time.perf_counter() - t0
+    host_fn([p + ".host" for p in got_paths])
+    return time.perf_counter() - t0
+
+
+def compare_with_host(name, got_paths, host_fn, secs, host_secs=None):
+    """Run host_fn (run_host), then compare every pair of files by size and
+    SHA-256.  host_secs: the host engine already ran (run_host), in that
+    many seconds."""
+    if host_secs is None:
+        host_secs = run_host(got_paths, host_fn)
+    want_paths = [p + ".host" for p in got_paths]
     sizes = []
     for got, want in zip(got_paths, want_paths):
         g, w = file_digest(got), file_digest(want)
@@ -1435,6 +1465,250 @@ def phase_call(work, rng, chunk_size):
         f"port {secs:.3f} s, host engine {host_secs:.3f} s")
 
 
+class RankSet:
+    """One mode's n rank processes of `python -m wgatools_tpu_torch` under
+    WGA_TPU_DIST on the card (NCCL), each in its own empty directory
+    job_dir/rank<k> (`-o` and `-f` name files relative to it), with its
+    stdout and stderr in files beside them.  A thread a rank records when
+    it exits."""
+
+    def __init__(self, job_dir, label, argv, n, env=None):
+        import socket
+        import threading
+
+        self.job_dir, self.label, self.n = job_dir, label, n
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        shutil.rmtree(job_dir, ignore_errors=True)
+        self.procs, self.ends, watchers = [], [None] * n, []
+        self.launches = {}
+        self.t0 = time.perf_counter()
+        for k in range(n):
+            os.makedirs(self.path(k))
+            rank_env = dict(
+                os.environ, PYTHONPATH=REPO, WGA_TPU_DIST="1",
+                WGA_TORCH_DEVICE="cuda",
+                JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                JAX_NUM_PROCESSES=str(n), JAX_PROCESS_ID=str(k),
+            )
+            rank_env.pop("WGA_TPU_GIANT_SPLIT", None)
+            rank_env.update(env or {})
+            with open(self.path(k) + ".out", "wb") as out, \
+                    open(self.path(k) + ".err", "wb") as err:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "wgatools_tpu_torch", *argv, "-v"],
+                    cwd=self.path(k), env=rank_env, stdout=out, stderr=err,
+                ))
+            watchers.append(threading.Thread(target=self._watch, args=(k,),
+                                             daemon=True))
+        for w in watchers:
+            w.start()
+
+    def path(self, k, name=None):
+        rank_dir = os.path.join(self.job_dir, f"rank{k}")
+        return rank_dir if name is None else os.path.join(rank_dir, name)
+
+    def _watch(self, k):
+        self.procs[k].wait()
+        self.ends[k] = time.perf_counter()
+
+    def kill(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def wait(self, deadline):
+        """Wait for every rank (killing them all past `deadline`), check
+        that each exited 0 on the NCCL backend, that no rank wrote to
+        stdout and that no rank but 0 created a file; returns the wall from
+        the start to the last rank's exit.  self.launches: the kernel
+        launches the ranks logged, summed."""
+        try:
+            for p in self.procs:
+                p.wait(timeout=max(0.0, deadline - time.perf_counter()))
+        finally:
+            self.kill()
+        for k, p in enumerate(self.procs):
+            with open(self.path(k) + ".err") as f:
+                err = f.read()
+            what = f"distributed {self.label}: rank {k}"
+            if p.returncode != 0:
+                raise AssertionError(f"{what} exited {p.returncode}:\n"
+                                     f"{err[-4000:]}")
+            if f"process {k}/{self.n}" not in err or "backend nccl" not in err:
+                raise AssertionError(f"{what} logged no NCCL init:\n"
+                                     f"{err[-4000:]}")
+            for line in err.splitlines():
+                if "kernel launches: " in line:
+                    counts = json.loads(line.split("kernel launches: ", 1)[1])
+                    for kernel, count in counts.items():
+                        self.launches[kernel] = (self.launches.get(kernel, 0)
+                                                 + count)
+            if os.path.getsize(self.path(k) + ".out"):
+                raise AssertionError(f"{what} wrote to stdout")
+            if k and os.listdir(self.path(k)):
+                raise AssertionError(f"{what} created "
+                                     f"{os.listdir(self.path(k))}")
+        while None in self.ends:  # the watchers record the exits
+            time.sleep(0.01)
+        return max(self.ends) - self.t0
+
+
+def pair_sum_median(paf):
+    """The median over (query, target) pairs of their summed target
+    alignment sizes: `filter -a` at it keeps about half the pairs."""
+    sums = {}
+    with open(paf) as f:
+        for line in f:
+            q, _, _, _, _, t, _, ts, te = line.split("\t", 9)[:9]
+            sums[q, t] = sums.get((q, t), 0) + int(te) - int(ts)
+    return int(np.median(list(sums.values())))
+
+
+def phase_distributed(work, n_ranks):
+    """The distributed modes (WGA_TPU_DIST) on n_ranks rank processes, one
+    card each, over NCCL, on the files the earlier phases wrote: each
+    mode's output from rank 0 against the host engine's bytes.  A rank
+    takes ~10 s to start on the card, so DIST_JOBS modes run at once, and
+    the host engine runs in this process while they do.  Each rank runs
+    its share as the TPU package's ranks do: `call -s` on its card (kernel
+    A, as the serial `call`), the other modes on the host engine; the
+    merges are NCCL collectives.  The launches the ranks log go to
+    RANK_LAUNCHES, and every `call -s` run must have launched kernel A.
+    `stat` and `call -s` run on the stat and call MAFs without, then with,
+    a maf-index manifest.  pafpseudo merges nothing and needs a FASTA: the
+    CPU tests hold it."""
+    from collections import deque
+
+    from wgatools_tpu_torch.io.chain import ChainReader
+    from wgatools_tpu_torch.io.compression import open_input, open_output
+    from wgatools_tpu_torch.io.maf import MafReader
+    from wgatools_tpu_torch.io.paf import PafReader
+    from wgatools_tpu_torch.tools import convert
+    from wgatools_tpu_torch.tools.caller import call_var_maf
+    from wgatools_tpu_torch.tools.dotplot import dotplot
+    from wgatools_tpu_torch.tools.filter import filter_paf_align_pair
+    from wgatools_tpu_torch.tools.index import (
+        build_index,
+        index_path_for,
+        load_index,
+    )
+    from wgatools_tpu_torch.tools.pafcov import pafcov
+    from wgatools_tpu_torch.tools.stat import stat_maf, stat_paf
+    from wgatools_tpu_torch.tools.validate import validate_paf
+
+    maf, call_maf, paf, chain, bad = (os.path.join(work, name) for name in (
+        "smoke.maf", "call.maf", "smoke.paf", "smoke.chain", "bad.paf"))
+    min_align = pair_sum_median(paf)
+
+    def reader(cls, path):
+        return cls(open_input(path))
+
+    def call_host(w):
+        index = index_path_for(call_maf)
+        call_var_maf(reader(MafReader, call_maf),
+                     load_index(index) if os.path.exists(index) else None,
+                     open_output(w[0], True), True, False, 50, None,
+                     chunk_size=1_000_000)
+
+    # label, argv (outputs relative to each rank's directory), the host
+    # engine writing the same outputs, extra environment
+    maf_runs = [
+        ("stat", ["stat", maf], lambda w: stat_maf(
+            reader(MafReader, maf), open_output(w[0], True), None)),
+        ("call -s", ["call", "-s", call_maf], call_host),
+    ]
+    runs = [(f"{label}, no index", argv, host, None)
+            for label, argv, host in maf_runs]
+    runs += [
+        ("maf2paf", ["maf2paf", maf], lambda w: convert.maf2paf(
+            reader(MafReader, maf), open_output(w[0], True), None), None),
+        ("maf2chain", ["maf2chain", maf], lambda w: convert.maf2chain(
+            reader(MafReader, maf), open_output(w[0], True), None), None),
+        ("stat -f paf", ["stat", "-f", "paf", bad], lambda w: stat_paf(
+            reader(PafReader, bad), open_output(w[0], True), None), None),
+        ("paf2chain", ["paf2chain", paf], lambda w: convert.paf2chain(
+            reader(PafReader, paf), open_output(w[0], True), None), None),
+        ("chain2paf", ["chain2paf", chain], lambda w: convert.chain2paf(
+            reader(ChainReader, chain), open_output(w[0], True), None), None),
+        ("pafcov", ["pafcov", paf], lambda w: pafcov(
+            reader(PafReader, paf), open_output(w[0], True), None), None),
+        ("validate -f", ["validate", bad, "-f", "fixed.paf"],
+         lambda w: validate_paf(reader(PafReader, bad),
+                                open_output(w[0], True),
+                                open_output(w[1], True), True, None), None),
+        (f"filter -f paf -a {min_align}",
+         ["filter", "-f", "paf", "-a", str(min_align), paf],
+         lambda w: filter_paf_align_pair(reader(PafReader, paf),
+                                         open_output(w[0], True), min_align),
+         None),
+        # one row a record: the 100 000-record PAF in seconds
+        ("dotplot -f paf -m overview --out-format csv",
+         ["dotplot", "-f", "paf", "-m", "overview", "--out-format", "csv",
+          paf], lambda w: dotplot(paf, open_output(w[0], True), "paf", "csv",
+                                  "overview", False, 50, None, None), None),
+    ]
+    if n_ranks > 1:  # every ~400 KB record column-split over the ranks
+        for label, argv, host, _ in runs[2:4]:
+            runs.append((f"{label}, giant split", argv, host,
+                         {"WGA_TPU_GIANT_SPLIT": str(DIST_GIANT_SPLIT)}))
+    manifest_runs = [(f"{label}, maf-index manifest", argv, host, None)
+                     for label, argv, host in maf_runs]
+
+    def run_all(runs):
+        """Keep DIST_JOBS modes in flight; the host engine of each runs
+        here after its ranks start; each mode is checked in start order."""
+        inflight = deque()
+
+        def finish():
+            job, got, host, host_secs = inflight.popleft()
+            secs = job.wait(job.t0 + DIST_TIMEOUT_S)
+            compare_with_host(f"distributed {job.label} (N={n_ranks}, "
+                              f"{DIST_JOBS} modes at once)", got, host, secs,
+                              host_secs)
+            log(f"distributed {job.label}: the ranks' launches "
+                f"{job.launches}")
+            if job.label.startswith("call") and not job.launches.get(
+                    "classify_cat"):
+                raise AssertionError(f"distributed {job.label}: no rank "
+                                     "launched classify_cat")
+            for kernel, count in job.launches.items():
+                RANK_LAUNCHES[kernel] = RANK_LAUNCHES.get(kernel, 0) + count
+            shutil.rmtree(job.job_dir)
+
+        try:
+            for k, (label, argv, host, env) in enumerate(runs):
+                if len(inflight) == DIST_JOBS:
+                    finish()
+                outs = ["out", "fixed.paf"] if argv[0] == "validate" else ["out"]
+                job = RankSet(os.path.join(work, f"dist{k}"), label,
+                              argv + ["-o", outs[0]], n_ranks, env)
+                got = [job.path(0, name) for name in outs]
+                inflight.append([job, got, host, None])
+                inflight[-1][3] = run_host(got, host)
+            while inflight:
+                finish()
+        finally:
+            for job, *_ in inflight:
+                job.kill()
+
+    indexes = [index_path_for(path) for path in (maf, call_maf)]
+    try:
+        run_all(runs)
+        t0 = time.perf_counter()
+        for path, index in zip((maf, call_maf), indexes):
+            build_index(MafReader.from_path(path), open_output(index, True))
+        log(f"distributed: maf-index of both MAFs in "
+            f"{time.perf_counter() - t0:.3f} s")
+        run_all(manifest_runs)
+    finally:
+        for index in indexes:
+            if os.path.exists(index):
+                os.remove(index)
+
+
 def profile_tools(work, out_dir):
     """--profile: the tools once more on the phases' inputs,
     timed plain, then under torch.profiler (device time by kernel and copy)
@@ -1543,6 +1817,7 @@ def main():
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
     corpus = load_corpus_module()
+    n_ranks = min(torch.cuda.device_count(), MAX_RANKS)
     gates = Gates()
     times = {}
     try:
@@ -1578,11 +1853,16 @@ def main():
                                               bench["full"]),
              ["classify_words", "classify_nibbles", "fused16", "fused_adv16",
               "classify_bytes", "liftover_scan"]),
+            ("distributed", lambda: phase_distributed(work, n_ranks),
+             ["classify_cat"]),
         ):
             _build.reset_launches()
+            RANK_LAUNCHES.clear()
             t0 = time.perf_counter()
             phase()
-            counts = dict(_build.LAUNCHES)
+            # this process's launches and those its rank processes logged
+            counts = {kernel: count + RANK_LAUNCHES.get(kernel, 0)
+                      for kernel, count in _build.LAUNCHES.items()}
             log(f"phase {name}: ok in {time.perf_counter() - t0:.3f} s, "
                 f"launches {counts}")
             for kernel in kernels:

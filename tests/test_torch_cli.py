@@ -6,9 +6,9 @@ arguments (run serially), with neither jax nor wgatools_tpu imported in
 the port's process; one case per run.  A few subcommands also go through
 `python -m wgatools_tpu_torch`, one process each.  tview is interactive and
 left out.  Also: WGA_TPU_TRACE writes a torch.profiler trace, and
-under WGA_TPU_DIST the port exits 1 with no output exactly where the TPU
-package starts a distributed run, and writes the TPU package's bytes
-everywhere else.
+under WGA_TPU_DIST one process writes the TPU package's bytes, both where
+the TPU package starts a distributed driver and where it runs the serial
+tool.
 """
 
 import gzip
@@ -297,21 +297,29 @@ def inputs(tmp_path_factory):
 
 
 @pytest.mark.parametrize("run", DIST_RUNS, ids=lambda r: " ".join(r[:3]))
-def test_dist_mode_is_refused_and_writes_nothing(run, inputs, tmp_path,
-                                                 monkeypatch, caplog):
-    """Under WGA_TPU_DIST the port exits 1 before it opens any output, so
-    ranks launched as for the TPU package never each write the whole
-    tool's output."""
+def test_dist_mode_one_process_writes_the_tpu_package_bytes(
+        run, inputs, tmp_path, monkeypatch):
+    """Under WGA_TPU_DIST with no coordinator variables the distributed
+    driver runs in one process, and writes the bytes of the TPU package's
+    driver under the same variable (pafpseudo: the same output
+    directory).  tests/test_torch_dist_*.py run the drivers on 2-4
+    ranks."""
     monkeypatch.setenv("WGA_TPU_DIST", "1")
     monkeypatch.setenv("WGA_TORCH_DEVICE", "cpu")
-    o = str(tmp_path / "out")
-    os.makedirs(o)
-    argv = [a.format(d=inputs, o=o) for a in run]
-    if run[0] != "pafpseudo":
-        argv += ["-o", os.path.join(o, "out")]
-    assert cli.main(argv) == 1
-    assert "WGA_TPU_DIST" in caplog.text
-    assert os.listdir(o) == []
+    for name in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                 "JAX_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    trees = []
+    for label, main in (("got", cli.main), ("want", host_main)):
+        o = str(tmp_path / label)
+        os.makedirs(o)
+        argv = [a.format(d=inputs, o=o) for a in run]
+        if run[0] != "pafpseudo":
+            argv += ["-o", os.path.join(o, "out")]
+        assert main(argv) == 0, label
+        trees.append(_tree(o))
+    assert trees[0] == trees[1]
+    assert trees[0]
 
 
 # under WGA_TPU_DIST, the branches where the TPU package runs the serial

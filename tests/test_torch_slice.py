@@ -402,11 +402,12 @@ def test_cli_refuses_cuda_without_cuda(tmp_path, monkeypatch):
              ["call", "-f", "paf"]]
 )
 def test_cli_unported_subcommands_exit_1(argv, tmp_path, caplog, monkeypatch):
-    """Under WGA_TPU_DIST the port refuses exactly where the TPU package
-    starts a distributed run: an empty plain file takes that branch in
-    validate, stat -f paf, chain2paf and pafcov, and the port exits 1
-    before it opens the output.  `call -f paf` has no distributed run:
-    it runs the serial tool and writes the TPU package's bytes."""
+    """Under WGA_TPU_DIST the port runs what the TPU package runs: an empty
+    plain file takes the distributed branch in validate, stat -f paf,
+    chain2paf and pafcov, whose driver runs in the one process (no
+    coordinator variables); `call -f paf` has no distributed run and runs
+    the serial tool.  Each writes the TPU package's bytes under the same
+    variable, and none is refused."""
     from wgatools_tpu.cli import main as host_main
 
     monkeypatch.setenv("WGA_TORCH_DEVICE", "cpu")
@@ -414,14 +415,11 @@ def test_cli_unported_subcommands_exit_1(argv, tmp_path, caplog, monkeypatch):
     f = tmp_path / "in.txt"
     f.write_bytes(b"")
     out, want = tmp_path / "out", tmp_path / "want"
-    if argv[0] != "call":
-        assert cli.main(argv + [str(f), "-o", str(out)]) == 1
-        assert "not yet ported to wgatools_tpu_torch" in caplog.text
-        assert not out.exists()
-        return
-    fa = tmp_path / "ref.fa"
-    fa.write_bytes(b">t1\nACGTACGT\n")
-    argv = argv + [str(f), "--target", str(fa), "-q", str(fa), "-s"]
+    argv = argv + [str(f)]
+    if argv[0] == "call":
+        fa = tmp_path / "ref.fa"
+        fa.write_bytes(b">t1\nACGTACGT\n")
+        argv += ["--target", str(fa), "-q", str(fa), "-s"]
     assert cli.main(argv + ["-o", str(out)]) == 0
     assert host_main(argv + ["-o", str(want)]) == 0
     assert out.read_bytes() == want.read_bytes()

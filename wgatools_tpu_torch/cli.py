@@ -11,13 +11,17 @@ visible aliases, and global flags (-o/--outfile, -r/--rewrite,
 - the host-only subcommands, `call -f paf`, and `-t > 1` on a plain file
   (the fork pools of parallel.host_pool) run the host engine.
 
-The distributed modes (WGA_TPU_DIST) are not ported.  Under that
-variable the port exits 1, writing nothing, in exactly the branches where
-wgatools_tpu/cli.py starts one: maf2paf, maf2chain, paf2chain, chain2paf,
-stat (MAF and PAF), dotplot, `filter -f paf -a N`, pafcov, validate and
-`call -f maf` on a plain seekable input, and pafpseudo on any input.
-Everywhere else (other subcommands, stdin and compressed inputs) it runs
-the serial tool, as the TPU package does.  WGA_TPU_TRACE=<dir> writes a
+Under WGA_TPU_DIST the distributed modes run where wgatools_tpu/cli.py
+runs them: maf2paf, maf2chain, paf2chain, chain2paf, stat (MAF and PAF),
+dotplot, `filter -f paf -a N`, pafcov, validate and `call -f maf` on a
+plain seekable input (the drivers of parallel.dist_tools), and pafpseudo
+on any input (each rank writes its stripe of the targets).  The ranks join
+one process group (parallel.distributed: NCCL on the card, gloo on the
+CPU) from JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID;
+without them the one process runs the driver alone.  Process 0 writes the
+output and every rank destroys the group when the driver returns.
+Everywhere else (other subcommands, stdin and compressed inputs) the serial
+tool runs, as in the TPU package.  WGA_TPU_TRACE=<dir> writes a
 torch.profiler trace (core.metrics).
 """
 
@@ -280,37 +284,56 @@ def build_parser():
     return parser
 
 
-def _dist_requested() -> bool:
-    return os.environ.get("WGA_TPU_DIST", "") not in ("", "0", "false")
-
-
-def _refuse_dist(args, plain_only=True):
-    """Raise where wgatools_tpu/cli.py starts a distributed run: under
-    WGA_TPU_DIST with a plain seekable input (any input when plain_only is
-    False).  Called before the branch opens any output."""
+def _start_dist(input_path):
+    """Where wgatools_tpu/cli.py starts a distributed driver (under
+    WGA_TPU_DIST, on a plain seekable input): join the ranks' process group
+    and return True.  False elsewhere, where the serial tool runs."""
+    from .parallel.dist_tools import dist_requested
     from .parallel.host_pool import is_plain_seekable
 
-    if _dist_requested() and (not plain_only
-                              or is_plain_seekable(args.input)):
-        raise WGAError("distributed mode (WGA_TPU_DIST) is not yet ported "
-                       "to wgatools_tpu_torch: unset it to run one process")
+    if dist_requested() and is_plain_seekable(input_path):
+        from .parallel.distributed import maybe_initialize_distributed
+
+        maybe_initialize_distributed()
+        return True
+    return False
 
 
 def main(argv=None):
+    from .parallel.dist_tools import dist_requested
+
     args = build_parser().parse_args(argv)
     init_logger(args.verbose)
+    done = False
     try:
         with maybe_trace(), METRICS.stage("total"):
             dispatch(args)
+        done = True
     except WGAError as e:
         log.error(str(e))
         return 1
     except BrokenPipeError:
         return 0
     finally:
+        if dist_requested():
+            from .parallel.distributed import shutdown_distributed
+
+            shutdown_distributed(failed=not done)
+        _log_launches()
         if args.verbose >= 2:
             METRICS.report()
     return 0
+
+
+def _log_launches():
+    """-v: the launches of each kernel this process made, as JSON, when it
+    loaded the kernels (each rank of a distributed run says its own)."""
+    import json
+    import sys
+
+    build = sys.modules.get(f"{__package__}.kernels._build")
+    if build is not None:
+        log.info("kernel launches: %s", json.dumps(build.LAUNCHES))
 
 
 def _device():
@@ -337,8 +360,13 @@ def dispatch(args):
         from .parallel.host_pool import parallel_maf2paf
         from .tools.convert import maf2paf
 
-        _refuse_dist(args)
-        if pooled:
+        if _start_dist(args.input):
+            from .parallel.dist_tools import dist_output, distributed_maf2paf
+
+            distributed_maf2paf(
+                args.input, dist_output(out, rw), args.query_name
+            )
+        elif pooled:
             parallel_maf2paf(
                 args.input, open_output(out, rw), args.threads, args.query_name
             )
@@ -349,8 +377,13 @@ def dispatch(args):
         from .parallel.host_pool import parallel_maf2chain
         from .tools.convert import maf2chain
 
-        _refuse_dist(args)
-        if pooled:
+        if _start_dist(args.input):
+            from .parallel.dist_tools import dist_output, distributed_maf2chain
+
+            distributed_maf2chain(
+                args.input, dist_output(out, rw), args.query_name
+            )
+        elif pooled:
             parallel_maf2chain(
                 args.input, open_output(out, rw), args.threads, args.query_name
             )
@@ -370,8 +403,11 @@ def dispatch(args):
         from .parallel.host_pool import parallel_paf2chain
         from .tools.convert import paf2chain
 
-        _refuse_dist(args)
-        if pooled:
+        if _start_dist(args.input):
+            from .parallel.dist_tools import dist_output, distributed_paf2chain
+
+            distributed_paf2chain(args.input, dist_output(out, rw))
+        elif pooled:
             parallel_paf2chain(args.input, open_output(out, rw), args.threads)
         else:
             paf2chain(PafReader(open_input(args.input)), open_output(out, rw),
@@ -389,8 +425,11 @@ def dispatch(args):
         from .parallel.host_pool import parallel_chain2paf
         from .tools.convert import chain2paf
 
-        _refuse_dist(args)
-        if pooled:
+        if _start_dist(args.input):
+            from .parallel.dist_tools import dist_output, distributed_chain2paf
+
+            distributed_chain2paf(args.input, dist_output(out, rw))
+        elif pooled:
             parallel_chain2paf(args.input, open_output(out, rw), args.threads)
         else:
             chain2paf(ChainReader(open_input(args.input)),
@@ -435,8 +474,20 @@ def dispatch(args):
         from .parallel.host_pool import parallel_stat_maf, parallel_stat_paf
         from .tools.stat import stat_maf, stat_paf
 
-        _refuse_dist(args)
-        if args.format == "maf":
+        if _start_dist(args.input):
+            from .parallel import dist_tools
+
+            if args.format == "paf":
+                dist_tools.distributed_stat_paf(
+                    args.input, dist_tools.dist_output(out, rw), args.each
+                )
+            else:
+                # <input>.index is the shard manifest when present
+                dist_tools.distributed_stat_maf(
+                    args.input, dist_tools.dist_output(out, rw), args.each,
+                    args.query_name,
+                )
+        elif args.format == "maf":
             if pooled:
                 parallel_stat_maf(
                     args.input,
@@ -459,10 +510,16 @@ def dispatch(args):
     elif cmd in ("dotplot", "dp"):
         from .tools.dotplot import dotplot
 
-        _refuse_dist(args)
+        dist = _start_dist(args.input)
+        if dist:
+            from .parallel.dist_tools import dist_output
+
+            w = dist_output(out, rw)
+        else:
+            w = open_output(out, rw)
         dotplot(
             args.input,
-            open_output(out, rw),
+            w,
             args.format,
             args.out_format,
             args.mode,
@@ -471,6 +528,7 @@ def dispatch(args):
             args.query_name,
             args.color,
             threads=args.threads if pooled else 1,
+            dist=dist,
         )
     elif cmd in ("filter", "fl"):
         from .tools.filter import (
@@ -480,9 +538,11 @@ def dispatch(args):
             filter_paf_align_pair,
         )
 
-        if args.format == "paf" and args.min_align_size is not None:
-            _refuse_dist(args)
-        w = open_output(out, rw)
+        dist = (args.format == "paf" and args.min_align_size is not None
+                and _start_dist(args.input))
+        # in distributed mode only process 0 may open the real output
+        # (dist_tools.dist_output): the distributed branch opens it
+        w = None if dist else open_output(out, rw)
         if args.format == "maf":
             filter_maf(
                 MafReader(open_input(args.input)),
@@ -498,7 +558,16 @@ def dispatch(args):
                 )
                 from .parallel.host_pool import parallel_filter_paf_align_pair
 
-                if pooled:
+                if dist:
+                    from .parallel.dist_tools import (
+                        dist_output,
+                        distributed_filter_paf_align_pair,
+                    )
+
+                    distributed_filter_paf_align_pair(
+                        args.input, dist_output(out, rw), args.min_align_size
+                    )
+                elif pooled:
                     parallel_filter_paf_align_pair(
                         args.input, w, args.threads, args.min_align_size
                     )
@@ -534,16 +603,28 @@ def dispatch(args):
         from .parallel.host_pool import parallel_pafcov
         from .tools.pafcov import pafcov
 
-        _refuse_dist(args)
-        if pooled:
+        if _start_dist(args.input):
+            from .parallel.dist_tools import dist_output, distributed_pafcov
+
+            distributed_pafcov(args.input, dist_output(out, rw))
+        elif pooled:
             parallel_pafcov(args.input, open_output(out, rw), args.threads)
         else:
             pafcov(PafReader(open_input(args.input)), open_output(out, rw),
                    _device())
     elif cmd in ("pafpseudo", "pp"):
+        from .parallel.dist_tools import dist_requested
         from .tools.pseudomaf import generate_pseudo_maf
 
-        _refuse_dist(args, plain_only=False)
+        stripe = None
+        if dist_requested():
+            from .parallel.distributed import (
+                maybe_initialize_distributed,
+                process_index_count,
+            )
+
+            maybe_initialize_distributed()
+            stripe = process_index_count()
         generate_pseudo_maf(
             PafReader(open_input(args.input)),
             out,
@@ -551,6 +632,7 @@ def dispatch(args):
             args.target,
             rw,
             threads=args.threads,
+            stripe=stripe,
         )
     elif cmd in ("gen-completion", "gc"):
         from .tools.completion import gen_completion
@@ -568,8 +650,22 @@ def dispatch(args):
                 raise WGAError(
                     "fixed file should not be the same as output file"
                 )
-        _refuse_dist(args)
-        if pooled:
+        if _start_dist(args.input):
+            from .parallel.dist_tools import (
+                dist_output,
+                distributed_validate_paf,
+            )
+
+            # the fixed output through dist_output too: only rank 0 may
+            # open a real file (another rank would race the overwrite guard)
+            fix_writer = dist_output(args.fix, True) if fix_requested else None
+            distributed_validate_paf(
+                args.input,
+                dist_output(out, rw),
+                fix_writer,
+                fix_requested,
+            )
+        elif pooled:
             fix_writer = open_output(args.fix, True) if fix_requested else None
             parallel_validate_paf(
                 args.input,
@@ -634,8 +730,24 @@ def _dispatch_call(args, out, rw, pooled):
             if args.query_regex
             else None
         )
-        _refuse_dist(args)
-        if pooled:
+        # no `and mafindex` here: distributed_call_maf loads its own index
+        # and falls back to a raw offset scan without one
+        if _start_dist(args.input):
+            from .parallel.dist_tools import dist_output, distributed_call_maf
+
+            distributed_call_maf(
+                args.input,
+                dist_output(out, rw),
+                args.snp,
+                args.inv,
+                args.svlen,
+                args.sample,
+                args.query_name,
+                regex,
+                args.chunk_size,
+                _device(),
+            )
+        elif pooled:
             parallel_call_maf(
                 args.input,
                 open_output(out, rw),

@@ -86,9 +86,14 @@ def build_fai(fasta_path: str, fai_path: str, bgzf: bool = False):
         opener = open(fasta_path, "rb")
     with opener as fp:
         entries = _scan_fai_entries(fp)
-    with open(fai_path, "wt") as out:
+    # written under a name of this process's and renamed: the ranks of a
+    # distributed pafpseudo may each build the index of one FASTA at once,
+    # and none may read another's half-written index
+    tmp = f"{fai_path}.{os.getpid()}.tmp"
+    with open(tmp, "wt") as out:
         for name, length, offset, lb, lw in entries:
             out.write(f"{name}\t{length}\t{offset}\t{lb}\t{lw}\n")
+    os.replace(tmp, fai_path)
 
 
 class FastaReader:

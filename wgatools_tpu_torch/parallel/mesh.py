@@ -22,7 +22,6 @@ behind its overflow check existed because x64 is off on the TPU; the card
 sums in int64.
 """
 
-import datetime
 from contextlib import contextmanager
 from dataclasses import dataclass
 
@@ -37,8 +36,7 @@ from ..ops.classify import (
 )
 from ..ops.fused import classify_liftover_fused16, classify_liftover_fused_adv16
 from ..ops.liftover import OP_D, OP_I, OP_S, liftover_scan
-
-INIT_TIMEOUT_S = 120
+from .distributed import init_group, shutdown_distributed
 
 
 @dataclass(frozen=True)
@@ -61,23 +59,18 @@ def record_group(backend, store_path, rank, size, device):
     """Initialise the default process group from a FileStore at store_path
     (a new file in an existing directory; no network address: every rank
     of one host opens the same file), yield this rank's RecordGroup, and
-    destroy the group on exit.  NCCL binds the group to `device` at once,
+    destroy the group on exit (marking the store when the block raised:
+    distributed.shutdown_distributed).  NCCL binds the group to `device` at once,
     so that a card that cannot take part fails here, within
-    INIT_TIMEOUT_S."""
+    distributed.INIT_TIMEOUT_S."""
     device = torch.device(device)
-    kwargs = {}
-    if backend == "nccl":
-        torch.cuda.set_device(device)
-        kwargs["device_id"] = device
-    dist.init_process_group(
-        backend, store=dist.FileStore(store_path, size), rank=rank,
-        world_size=size, timeout=datetime.timedelta(seconds=INIT_TIMEOUT_S),
-        **kwargs,
-    )
+    init_group(backend, dist.FileStore(store_path, size), rank, size, device)
+    failed = True
     try:
         yield RecordGroup.current(device)
+        failed = False
     finally:
-        dist.destroy_process_group()
+        shutdown_distributed(failed)
 
 
 def shard_rows(group: RecordGroup, arr, axis=0):

@@ -475,16 +475,24 @@ def dotplot(
     query_name=None,
     color=None,
     threads=1,
+    dist=False,
 ):
     """reference: dotplot.rs:192-261.  threads > 1 collects rows with the
-    forked record pool (reference rayon sites dotplot.rs:236,303-366)."""
+    forked record pool (reference rayon sites dotplot.rs:236,303-366);
+    dist=True collects across torch.distributed ranks instead."""
     from ..io.compression import open_input
 
     if format not in ("maf", "paf"):
         raise WGAError("Only support MAF and PAF format")
     spec = copy.deepcopy(DOTPLOT_SPEC)
 
-    if threads > 1:
+    if dist:
+        from ..parallel.dist_tools import distributed_dotplot_rows
+
+        rows = distributed_dotplot_rows(
+            input_path, format, mode, no_identity, skip_cutoff, query_name
+        )
+    elif threads > 1:
         from ..parallel.host_pool import parallel_dotplot_rows
 
         rows = parallel_dotplot_rows(
