@@ -53,7 +53,19 @@ Builds the port's CUDA kernels from wgatools_tpu_torch/csrc/ and then:
    init, only rank 0 may create a file, none may write to stdout, and rank
    0's files must equal the host engine's bytes.  Each rank logs its
    kernel launches at -v; `call -s` runs kernel A on the ranks' cards, as
-   the serial `call` does, and its ranks must have launched it.
+   the serial `call` does, and its ranks must have launched it;
+11. `entry`: the fused entry step (wgatools_tpu_torch.entry, one launch of
+   kernel F) against its plain version on a CPU copy;
+12. `bench`: `python -m wgatools_tpu_torch.bench` (the headline metric:
+   kernel C in a CUDA-graph loop behind seven gates) must print one JSON
+   line with bench.py's metric and a value within the card's roofline
+   guard; the launches it logs count here;
+13. `p2c headline`: `paf2chain` on the p2c headline's ~2.18 Gbp PAF
+   (wgatools_tpu_torch.scripts.p2c_headline.build) against the host
+   engine's bytes;
+14. `scaling`: `python -m wgatools_tpu_torch.scripts.scaling_bench
+   --nproc N` at its defaults, N = min(cards, 4): one JSON line a group
+   size, every rank on NCCL; the launches its ranks log count here.
 
 Launch counts are reset before each tool phase and read after it: every
 kernel of that phase's path must have launched there.  With --profile,
@@ -123,7 +135,10 @@ MAX_RANKS = 4
 DIST_JOBS = 4
 DIST_GIANT_SPLIT = 262_144
 DIST_TIMEOUT_S = 300
-# the kernel launches the distributed phase's rank processes logged
+# how long the bench or the scaling bench may take as a process
+PROGRAM_TIMEOUT_S = 300
+# the kernel launches a phase's other processes logged (the distributed
+# ranks, the bench, the scaling bench's ranks)
 RANK_LAUNCHES = {}
 # kernel C's modes besides bench.py's (catmode, raw sums): label, flags
 ADV16_MODES = (
@@ -133,11 +148,6 @@ ADV16_MODES = (
 )
 
 
-# the card's peaks behind each kernel's bound (NVIDIA's data sheet, H100
-# SXM at 700 W): HBM bytes/s, and operations/s outside the tensor cores
-# (the float32 rate; the kernels' integer work has no faster unit)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
 # kernel -> (bytes its timed call must move, operations it must do)
 WORK = {}
 
@@ -156,6 +166,8 @@ def record_work(name, nbytes, ops):
 def bound(name):
     """(bound_ms, bound_by) of kernel `name`'s timed call: the larger of its
     bytes over the memory rate and its operations over the peak rate."""
+    from wgatools_tpu_torch.core.device import PEAK_BYTES_PER_S, PEAK_OPS_PER_S
+
     nbytes, ops = WORK[name]
     by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     by_ops = ops / PEAK_OPS_PER_S * 1e3
@@ -467,6 +479,8 @@ def log_scan_times(shape, ops, lens, ms):
     function (one of its two scans, without the op decode), not a library
     call that computes it."""
     import torch
+
+    from wgatools_tpu_torch.core.device import PEAK_BYTES_PER_S
 
     adv = torch.where(ops == ord("I"), lens, torch.zeros_like(lens))
     cumsum_ms = time_ms(lambda: torch.cumsum(adv, dim=1, dtype=torch.int32))
@@ -1465,6 +1479,18 @@ def phase_call(work, rng, chunk_size):
         f"port {secs:.3f} s, host engine {host_secs:.3f} s")
 
 
+def logged_launches(lines):
+    """The kernel launches that the `kernel launches: {json}` lines among
+    `lines` report, summed."""
+    total = {}
+    for line in lines:
+        if "kernel launches: " in line:
+            counts = json.loads(line.split("kernel launches: ", 1)[1])
+            for kernel, count in counts.items():
+                total[kernel] = total.get(kernel, 0) + count
+    return total
+
+
 class RankSet:
     """One mode's n rank processes of `python -m wgatools_tpu_torch` under
     WGA_TPU_DIST on the card (NCCL), each in its own empty directory
@@ -1540,12 +1566,8 @@ class RankSet:
             if f"process {k}/{self.n}" not in err or "backend nccl" not in err:
                 raise AssertionError(f"{what} logged no NCCL init:\n"
                                      f"{err[-4000:]}")
-            for line in err.splitlines():
-                if "kernel launches: " in line:
-                    counts = json.loads(line.split("kernel launches: ", 1)[1])
-                    for kernel, count in counts.items():
-                        self.launches[kernel] = (self.launches.get(kernel, 0)
-                                                 + count)
+            for kernel, count in logged_launches(err.splitlines()).items():
+                self.launches[kernel] = self.launches.get(kernel, 0) + count
             if os.path.getsize(self.path(k) + ".out"):
                 raise AssertionError(f"{what} wrote to stdout")
             if k and os.listdir(self.path(k)):
@@ -1674,8 +1696,7 @@ def phase_distributed(work, n_ranks):
                     "classify_cat"):
                 raise AssertionError(f"distributed {job.label}: no rank "
                                      "launched classify_cat")
-            for kernel, count in job.launches.items():
-                RANK_LAUNCHES[kernel] = RANK_LAUNCHES.get(kernel, 0) + count
+            add_rank_launches(job.launches)
             shutil.rmtree(job.job_dir)
 
         try:
@@ -1707,6 +1728,112 @@ def phase_distributed(work, n_ranks):
         for index in indexes:
             if os.path.exists(index):
                 os.remove(index)
+
+
+def phase_entry(device, gates):
+    """The fused entry step (wgatools_tpu_torch.entry, kernel F on the
+    card) against its plain version on a CPU copy of its inputs."""
+    from wgatools_tpu_torch.entry import entry
+
+    step, args = entry(device)
+    got = step(*args)
+    want = step(*(a.cpu() for a in args))
+    gates.check("fused16", f"entry step B={args[0].shape[0]} "
+                f"L={args[0].shape[1]} op words {tuple(args[3].shape)}",
+                got, [w.to(device) for w in want])
+
+
+def run_program(argv):
+    """Run `python -m argv` from the repository root on the card; returns
+    (stdout, stderr lines, wall seconds).  Every stderr line is logged; a
+    non-zero exit raises."""
+    env = dict(os.environ, PYTHONPATH=REPO, WGA_TORCH_DEVICE="cuda")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=REPO, env=env,
+                          capture_output=True, text=True,
+                          timeout=PROGRAM_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    err = proc.stderr.splitlines()
+    for line in err:
+        log(f"  {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m {' '.join(argv)} exited "
+                             f"{proc.returncode}")
+    return proc.stdout, err, secs
+
+
+def add_rank_launches(counts):
+    for kernel, count in counts.items():
+        RANK_LAUNCHES[kernel] = RANK_LAUNCHES.get(kernel, 0) + count
+
+
+def phase_bench():
+    """`python -m wgatools_tpu_torch.bench` as a user runs it: it must pass
+    its seven gates and print one JSON line with bench.py's metric and a
+    value in (0, the card's roofline guard]."""
+    from wgatools_tpu_torch import bench
+
+    out, err, secs = run_program(["wgatools_tpu_torch.bench"])
+    gates_ok = sum("parity gate: OK" in line for line in err)
+    if gates_ok != 7:
+        raise AssertionError(f"bench: {gates_ok} of its 7 gates passed")
+    lines = out.strip().splitlines()
+    result = json.loads(lines[-1])
+    B, L = bench.CARD_SHAPE
+    guard = bench.roofline_columns_per_s(B, L, L // 32 // bench.GROUP) / 1e9
+    if (len(lines) != 1 or result["metric"] != bench.METRIC
+            or not 0 < result["value"] <= guard):
+        raise AssertionError(f"bench printed {out!r} (guard {guard:.3f} "
+                             "Gbp/s)")
+    log(f"bench: {lines[-1]} (roofline guard {guard:.3f} Gbp/s), "
+        f"{secs:.3f} s of process")
+    add_rank_launches(logged_launches(err))
+
+
+def phase_p2c_headline(work):
+    """The p2c headline's PAF (scripts.p2c_headline.build: ~2.18 Gbp in
+    ~2000 records of 1000 CIGAR runs) through the port's `paf2chain` on the
+    card against the host engine's bytes."""
+    from wgatools_tpu_torch.io.compression import open_input, open_output
+    from wgatools_tpu_torch.io.paf import PafReader
+    from wgatools_tpu_torch.scripts.p2c_headline import build
+    from wgatools_tpu_torch.tools.convert import paf2chain
+
+    paf = os.path.join(work, "p2c_headline.paf")
+    out = os.path.join(work, "p2c_headline.chain")
+    t0 = time.perf_counter()
+    records, cols = build(paf)
+    log(f"p2c headline: wrote {records} records, {cols / 1e9:.3f} Gbp of "
+        f"aligned columns, {os.path.getsize(paf)} B of PAF in "
+        f"{time.perf_counter() - t0:.3f} s")
+    secs = run_cli(["paf2chain", paf, "-o", out, "-r"])
+    compare_with_host("p2c headline paf2chain", [out], lambda w: paf2chain(
+        PafReader(open_input(paf)), open_output(w[0], True), None), secs)
+    os.remove(paf)
+    os.remove(out)
+
+
+def phase_scaling(n_ranks):
+    """`python -m wgatools_tpu_torch.scripts.scaling_bench --nproc
+    n_ranks` at its defaults: one JSON line per group size with the TPU
+    script's keys, every rank of every size on NCCL."""
+    from wgatools_tpu_torch.scripts.scaling_bench import group_sizes
+
+    out, err, secs = run_program(
+        ["wgatools_tpu_torch.scripts.scaling_bench", "--nproc", str(n_ranks)])
+    rows = [json.loads(line) for line in out.strip().splitlines()]
+    sizes = group_sizes(n_ranks)
+    if [r.get("devices") for r in rows] != sizes or any(
+            set(r) != {"devices", "gcols_per_s", "scaling_efficiency"}
+            or not r["gcols_per_s"] > 0 for r in rows):
+        raise AssertionError(f"scaling_bench printed {out!r}")
+    for n in sizes:
+        for k in range(n):
+            if f"rank {k}/{n}: backend nccl" not in "\n".join(err):
+                raise AssertionError(f"scaling_bench: rank {k}/{n} logged no "
+                                     "NCCL backend")
+    log(f"scaling: {rows}, {secs:.3f} s of process")
+    add_rank_launches(logged_launches(err))
 
 
 def profile_tools(work, out_dir):
@@ -1855,12 +1982,20 @@ def main():
               "classify_bytes", "liftover_scan"]),
             ("distributed", lambda: phase_distributed(work, n_ranks),
              ["classify_cat"]),
+            ("entry", lambda: phase_entry(device, gates), ["fused16"]),
+            ("bench", phase_bench,
+             ["fused_adv16", "classify_bytes", "classify_words",
+              "classify_cat", "liftover_scan"]),
+            ("p2c headline", lambda: phase_p2c_headline(work),
+             ["liftover_scan"]),
+            ("scaling", lambda: phase_scaling(n_ranks), ["classify_words"]),
         ):
             _build.reset_launches()
             RANK_LAUNCHES.clear()
             t0 = time.perf_counter()
             phase()
-            # this process's launches and those its rank processes logged
+            # this process's launches and those its programs' processes
+            # logged
             counts = {kernel: count + RANK_LAUNCHES.get(kernel, 0)
                       for kernel, count in _build.LAUNCHES.items()}
             log(f"phase {name}: ok in {time.perf_counter() - t0:.3f} s, "

@@ -24,6 +24,12 @@ DEVICE_MIN_OPS = 1 << 16
 
 DEVICE_ENV = "WGA_TORCH_DEVICE"
 
+# the card's peaks behind every bound the port states (NVIDIA's data sheet,
+# H100 SXM at 700 W): HBM bytes/s, and operations/s outside the tensor
+# cores (the float32 rate; the kernels' integer work has no faster unit)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+
 
 def torch_device() -> torch.device:
     name = os.environ.get(DEVICE_ENV, "cuda")
