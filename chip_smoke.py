@@ -65,7 +65,17 @@ Builds the port's CUDA kernels from wgatools_tpu_torch/csrc/ and then:
    engine's bytes;
 14. `scaling`: `python -m wgatools_tpu_torch.scripts.scaling_bench
    --nproc N` at its defaults, N = min(cards, 4): one JSON line a group
-   size, every rank on NCCL; the launches its ranks log count here.
+   size, every rank on NCCL; the launches its ranks log count here;
+15. `fuzz`: `python -m wgatools_tpu_torch.scripts.fuzz_campaign` at a
+   fixed seed and case count: its seven properties must pass, the kernel
+   properties through all eight kernels on the card, each held against its
+   plain version and the oracle on every case;
+16. `scale configs`: `python -m wgatools_tpu_torch.scripts.scale_configs`
+   at its defaults (BASELINE configs 3-4: maf-index, call -s -l0, maf-ext,
+   chunk on a ~102 Mbp MAF; pafcov and pafpseudo on a 60 000-record PAF;
+   serial on the card, -t 4 and WGA_TPU_DIST over min(cards, 2) NCCL
+   ranks): every md5 cross-check must hold and the serial pafcov must
+   launch kernel B.
 
 Launch counts are reset before each tool phase and read after it: every
 kernel of that phase's path must have launched there.  With --profile,
@@ -90,7 +100,6 @@ work files go to build/chip_smoke/ and are removed at the end.
 """
 
 import argparse
-import importlib.util
 import io
 import json
 import os
@@ -137,6 +146,10 @@ DIST_GIANT_SPLIT = 262_144
 DIST_TIMEOUT_S = 300
 # how long the bench or the scaling bench may take as a process
 PROGRAM_TIMEOUT_S = 300
+# the fuzz campaign's seed and cases a property, and how long the scale
+# configs program (BASELINE configs 3-4 at their full size) may take
+FUZZ_SEED, FUZZ_ITERS = 0, 1000
+SCALE_TIMEOUT_S = 900
 # the kernel launches a phase's other processes logged (the distributed
 # ranks, the bench, the scaling bench's ranks)
 RANK_LAUNCHES = {}
@@ -225,15 +238,6 @@ class Gates:
         if err:
             raise AssertionError(f"{name} [{label}]: max |kernel - plain| = {err}")
         log(f"gate {name} [{label}]: ok")
-
-
-def load_corpus_module():
-    spec = importlib.util.spec_from_file_location(
-        "make_corpus", os.path.join(REPO, "scripts", "make_corpus.py")
-    )
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def random_pairs(rng, lengths, all_gap_rows=()):
@@ -1743,22 +1747,21 @@ def phase_entry(device, gates):
                 got, [w.to(device) for w in want])
 
 
-def run_program(argv):
+def run_program(argv, timeout=PROGRAM_TIMEOUT_S):
     """Run `python -m argv` from the repository root on the card; returns
     (stdout, stderr lines, wall seconds).  Every stderr line is logged; a
-    non-zero exit raises."""
+    non-zero exit raises, with the end of stdout."""
     env = dict(os.environ, PYTHONPATH=REPO, WGA_TORCH_DEVICE="cuda")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", *argv], cwd=REPO, env=env,
-                          capture_output=True, text=True,
-                          timeout=PROGRAM_TIMEOUT_S)
+                          capture_output=True, text=True, timeout=timeout)
     secs = time.perf_counter() - t0
     err = proc.stderr.splitlines()
     for line in err:
         log(f"  {line}")
     if proc.returncode != 0:
         raise AssertionError(f"python -m {' '.join(argv)} exited "
-                             f"{proc.returncode}")
+                             f"{proc.returncode}:\n{proc.stdout[-4000:]}")
     return proc.stdout, err, secs
 
 
@@ -1833,6 +1836,53 @@ def phase_scaling(n_ranks):
                 raise AssertionError(f"scaling_bench: rank {k}/{n} logged no "
                                      "NCCL backend")
     log(f"scaling: {rows}, {secs:.3f} s of process")
+    add_rank_launches(logged_launches(err))
+
+
+def phase_fuzz():
+    """`python -m wgatools_tpu_torch.scripts.fuzz_campaign` on the card at
+    FUZZ_SEED, FUZZ_ITERS cases a property (kernel properties included):
+    it must exit 0 and print the seven PASS lines; the launches it logs
+    count here."""
+    from wgatools_tpu_torch.scripts.fuzz_campaign import PROPS
+
+    out, err, secs = run_program(
+        ["wgatools_tpu_torch.scripts.fuzz_campaign", "--iters",
+         str(FUZZ_ITERS), "--seed", str(FUZZ_SEED)])
+    want = [f"PASS {name}: {FUZZ_ITERS} cases" for name in PROPS]
+    if out.splitlines() != want:
+        raise AssertionError(f"fuzz_campaign printed {out!r}")
+    log(f"fuzz: {len(want)} properties x {FUZZ_ITERS} cases (seed "
+        f"{FUZZ_SEED}) passed, {secs:.3f} s of process")
+    add_rank_launches(logged_launches(err))
+
+
+def phase_scale_configs(work):
+    """`python -m wgatools_tpu_torch.scripts.scale_configs` at its defaults
+    (BASELINE configs 3-4: a 128 x 800 000-column MAF, a 60 000 x 60-run
+    PAF): every row serial on the card, `-t 4`, and under WGA_TPU_DIST on
+    min(cards, 2) NCCL ranks; every md5 cross-check must hold (the program
+    raises otherwise) and `pafcov (serial)` must have launched kernel B.
+    The launches its rows logged count here."""
+    out, err, secs = run_program(
+        ["wgatools_tpu_torch.scripts.scale_configs", "--out",
+         os.path.join(work, "scale_configs")], timeout=SCALE_TIMEOUT_S)
+    table = [line for line in out.splitlines() if line.startswith("| `")]
+    checks = [line for line in table if "bytes==serial" in line]
+    if len(table) != 12 or len(checks) != 6 or any(
+            "bytes==serial: True" not in line for line in checks):
+        raise AssertionError(f"scale_configs printed {out!r}")
+    rows = {}
+    for line in err:  # "[scale_configs] <row>: <wall> s, launched {json}"
+        if ", launched " in line:
+            head, counts = line.split(", launched ", 1)
+            rows[head.split("] ", 1)[1].rsplit(": ", 1)[0]] = json.loads(counts)
+    if not rows.get("pafcov (serial)", {}).get("liftover_scan"):
+        raise AssertionError("scale_configs: pafcov (serial) did not launch "
+                             "kernel B")
+    for line in table:
+        log(f"scale configs {line}")
+    log(f"scale configs: {secs:.3f} s of process")
     add_rank_launches(logged_launches(err))
 
 
@@ -1924,6 +1974,7 @@ def main():
         return 2
     sys.path.insert(0, REPO)
     from wgatools_tpu_torch.kernels import _build
+    from wgatools_tpu_torch.scripts import make_corpus as corpus
 
     device = torch.device("cuda", 0)
     os.environ["WGA_TORCH_DEVICE"] = "cuda"
@@ -1943,7 +1994,6 @@ def main():
     rng = np.random.default_rng(args.seed)
     work = os.path.join(REPO, "build", "chip_smoke")
     os.makedirs(work, exist_ok=True)
-    corpus = load_corpus_module()
     n_ranks = min(torch.cuda.device_count(), MAX_RANKS)
     gates = Gates()
     times = {}
@@ -1989,6 +2039,12 @@ def main():
             ("p2c headline", lambda: phase_p2c_headline(work),
              ["liftover_scan"]),
             ("scaling", lambda: phase_scaling(n_ranks), ["classify_words"]),
+            ("fuzz", phase_fuzz,
+             ["classify_cat", "classify_bytes", "classify_words",
+              "classify_nibbles", "liftover_scan", "fused16", "fused_adv16",
+              "fused_ops"]),
+            ("scale configs", lambda: phase_scale_configs(work),
+             ["liftover_scan"]),
         ):
             _build.reset_launches()
             RANK_LAUNCHES.clear()

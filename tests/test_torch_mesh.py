@@ -561,6 +561,25 @@ def test_dryrun_launcher_runs_two_ranks():
         [sys.executable, "-m", "wgatools_tpu_torch.parallel.dryrun",
          "--nproc", "2"],
         capture_output=True, text=True, cwd=REPO, timeout=300,
+        env=dict(os.environ, WGA_TORCH_DEVICE="cpu"),
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "dryrun: ok on 2 ranks (gloo)"
+
+
+def test_dryrun_launcher_without_a_card_names_the_variable():
+    """The launcher takes the card by default: without one, and without
+    WGA_TORCH_DEVICE=cpu, it exits non-zero rather than falling back to
+    gloo ranks on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    env = dict(os.environ)
+    env.pop("WGA_TORCH_DEVICE", None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "wgatools_tpu_torch.parallel.dryrun",
+         "--nproc", "2"],
+        capture_output=True, text=True, cwd=REPO, timeout=120, env=env,
+    )
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    assert "WGA_TORCH_DEVICE" in proc.stderr

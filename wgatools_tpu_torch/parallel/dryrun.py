@@ -12,8 +12,10 @@ elsewhere.
 
     python -m wgatools_tpu_torch.parallel.dryrun --nproc N
 
-spawns N ranks (NCCL over N cards when the machine has them, gloo on the
-CPU otherwise) and exits non-zero if any rank fails.
+spawns N ranks on the device core.device.torch_device() names: NCCL over
+N cards by default, gloo on the CPU only under WGA_TORCH_DEVICE=cpu (a
+machine without a card and without that variable exits non-zero).  It exits
+non-zero if any rank fails.
 """
 
 import argparse
@@ -27,6 +29,7 @@ import traceback
 import numpy as np
 import torch
 
+from ..core.device import torch_device
 from ..kernels import _build
 from ..ops.classify import (
     classify_stat_bytes_ref,
@@ -290,7 +293,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--nproc", type=int, default=2)
     args = ap.parse_args(argv)
-    if torch.cuda.is_available():
+    try:
+        device = torch_device()
+    except RuntimeError as e:
+        raise SystemExit(f"dryrun: {e}") from None
+    if device.type == "cuda":
         if torch.cuda.device_count() < args.nproc:
             raise SystemExit(
                 f"--nproc {args.nproc} needs {args.nproc} cards, have "
