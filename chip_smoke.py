@@ -31,7 +31,17 @@ Builds the port's CUDA kernels from wgatools_tpu_torch/csrc/ and then:
 8. `fused_ops`: kernel 8 (classify_liftover_fused, which no tool calls)
    through its public op at bench.py's shape in both op forms, against the
    plain word stats and the plain full liftover scan;
-9. `sharded`: on a one-rank NCCL group (FileStore under build/), runs the
+9. `host route`: each device subcommand (`stat`, `stat -f paf`, `maf2paf`,
+   `maf2chain`, `paf2chain`, `chain2paf`, `call -s`, `pafcov`,
+   `validate`) again as a process of `python -m wgatools_tpu_torch` under
+   WGA_TPU_DEVICE=0, on the file its card run read: it must write the card
+   route's bytes (size and SHA-256), log the host engine's route and no
+   kernel launch, and end without torch loaded (an import of torch fails
+   there);
+10. `process start`: the wall of `python -c pass`, then in one fresh
+   process `import torch`, the first CUDA context and loading the built
+   kernel library, on one line with the card's name and power limit;
+11. `sharded`: on a one-rank NCCL group (FileStore under build/), runs the
    dryrun of the sharded layer, then every sharded function at full size
    against the plain versions: column stats on byte-word and nibble
    planes, kernel F and every mode of kernel C at bench.py's B=128 x 2^20
@@ -41,7 +51,7 @@ Builds the port's CUDA kernels from wgatools_tpu_torch/csrc/ and then:
    ops.  One rank shows that the collectives run on NCCL and that the
    shards' carries and merges are right when there is one shard; the
    multi-rank semantics are held on the CPU with gloo (tests);
-10. `distributed`: the distributed modes (WGA_TPU_DIST) as users launch
+12. `distributed`: the distributed modes (WGA_TPU_DIST) as users launch
    them, N = min(cards, 4) processes of `python -m wgatools_tpu_torch`,
    one card each, merging over NCCL (also at N = 1: a group of one rank
    runs the same collectives): `stat` and `call -s` on the stat and call
@@ -54,23 +64,23 @@ Builds the port's CUDA kernels from wgatools_tpu_torch/csrc/ and then:
    0's files must equal the host engine's bytes.  Each rank logs its
    kernel launches at -v; `call -s` runs kernel A on the ranks' cards, as
    the serial `call` does, and its ranks must have launched it;
-11. `entry`: the fused entry step (wgatools_tpu_torch.entry, one launch of
+13. `entry`: the fused entry step (wgatools_tpu_torch.entry, one launch of
    kernel F) against its plain version on a CPU copy;
-12. `bench`: `python -m wgatools_tpu_torch.bench` (the headline metric:
+14. `bench`: `python -m wgatools_tpu_torch.bench` (the headline metric:
    kernel C in a CUDA-graph loop behind seven gates) must print one JSON
    line with bench.py's metric and a value within the card's roofline
    guard; the launches it logs count here;
-13. `p2c headline`: `paf2chain` on the p2c headline's ~2.18 Gbp PAF
+15. `p2c headline`: `paf2chain` on the p2c headline's ~2.18 Gbp PAF
    (wgatools_tpu_torch.scripts.p2c_headline.build) against the host
    engine's bytes;
-14. `scaling`: `python -m wgatools_tpu_torch.scripts.scaling_bench
+16. `scaling`: `python -m wgatools_tpu_torch.scripts.scaling_bench
    --nproc N` at its defaults, N = min(cards, 4): one JSON line a group
    size, every rank on NCCL; the launches its ranks log count here;
-15. `fuzz`: `python -m wgatools_tpu_torch.scripts.fuzz_campaign` at a
+17. `fuzz`: `python -m wgatools_tpu_torch.scripts.fuzz_campaign` at a
    fixed seed and case count: its seven properties must pass, the kernel
    properties through all eight kernels on the card, each held against its
    plain version and the oracle on every case;
-16. `scale configs`: `python -m wgatools_tpu_torch.scripts.scale_configs`
+18. `scale configs`: `python -m wgatools_tpu_torch.scripts.scale_configs`
    at its defaults (BASELINE configs 3-4: maf-index, call -s -l0, maf-ext,
    chunk on a ~102 Mbp MAF; pafcov and pafpseudo on a 60 000-record PAF;
    serial on the card, -t 4 and WGA_TPU_DIST over min(cards, 2) NCCL
@@ -78,11 +88,14 @@ Builds the port's CUDA kernels from wgatools_tpu_torch/csrc/ and then:
    launch kernel B.
 
 Launch counts are reset before each tool phase and read after it: every
-kernel of that phase's path must have launched there.  With --profile,
-`stat`, `paf2chain`, `maf2paf`, both `call` runs, `pafcov` and `validate`
-then run once more
-under torch.profiler and cProfile, with a summary printed and the tables
-written to DIR/profile.txt.  The reference for the tool bytes is the
+kernel of that phase's path must have launched there, and each tool run
+must record its device route's METRICS stage (`stat -f paf`, `validate`
+and `chain2paf` launch no hand-written kernel; the stage shows their
+device route ran).  The script pins the card route for itself and every
+process it starts: WGA_TORCH_DEVICE=cuda, WGA_TPU_DEVICE removed.  With
+--profile, `stat`, `paf2chain`, `maf2paf`, both `call` runs, `pafcov` and
+`validate` then run once more under torch.profiler and cProfile, with a
+summary printed and the tables written to DIR/profile.txt.  The reference for the tool bytes is the
 port's own host engine (each tool with device=None), which shares the
 output formatting code with the device route: the byte comparison checks
 the per-record counters, run tables, coverage and the chain-line
@@ -163,6 +176,9 @@ ADV16_MODES = (
 
 # kernel -> (bytes its timed call must move, operations it must do)
 WORK = {}
+# device subcommand -> (argv, (size, SHA-256) of its output on the card),
+# which the host route phase repeats under WGA_TPU_DEVICE=0
+CARD_OUTPUTS = {}
 
 
 def log(msg):
@@ -1089,14 +1105,30 @@ def write_maf(path, corpus, rng, n_records, n_cols):
             t_off += t_len + 10
 
 
-def run_cli(argv):
+def run_cli(argv, stage=None):
+    """`argv` through the port's command line in this process; returns its
+    wall.  stage: the METRICS stage its device route records, which must
+    show that the route ran (the tools that launch no hand-written kernel
+    have no launch count to show it)."""
     from wgatools_tpu_torch.cli import main
+    from wgatools_tpu_torch.core.metrics import METRICS
 
+    METRICS.stages.clear()
     t0 = time.perf_counter()
     rc = main(argv)
     if rc != 0:
         raise AssertionError(f"wgatools_tpu_torch {' '.join(argv)} exited {rc}")
-    return time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    if stage is not None and stage not in METRICS.stages:
+        raise AssertionError(f"wgatools_tpu_torch {' '.join(argv)}: no "
+                             f"{stage} stage, the device route did not run")
+    return secs
+
+
+def keep_card_output(name, argv):
+    """Record device subcommand `name`'s argv and the (size, SHA-256) of the
+    file it wrote on the card, for the host route phase."""
+    CARD_OUTPUTS[name] = (argv, file_digest(argv[argv.index("-o") + 1]))
 
 
 def phase_stat(work, corpus, rng):
@@ -1113,7 +1145,10 @@ def phase_stat(work, corpus, rng):
         f"{time.perf_counter() - t0:.3f} s")
     for each in (False, True):
         out = os.path.join(work, f"stat{'_each' if each else ''}.tsv")
-        secs = run_cli(["stat", maf, "-o", out, "-r"] + (["-e"] if each else []))
+        argv = ["stat", maf, "-o", out, "-r"] + (["-e"] if each else [])
+        secs = run_cli(argv, "device_stats")
+        if not each:
+            keep_card_output("stat", argv)
         t0 = time.perf_counter()
         want = io.BytesIO()
         stat_maf(MafReader(open_input(maf)), want, None, each)
@@ -1139,7 +1174,9 @@ def phase_paf2chain(work, corpus, rng):
     log(f"paf2chain: wrote {os.path.getsize(paf)} B of PAF in "
         f"{time.perf_counter() - t0:.3f} s")
     out = os.path.join(work, "smoke.chain")
-    secs = run_cli(["paf2chain", paf, "-o", out, "-r"])
+    argv = ["paf2chain", paf, "-o", out, "-r"]
+    secs = run_cli(argv, "device_chain_scan")
+    keep_card_output("paf2chain", argv)
     t0 = time.perf_counter()
     want = io.BytesIO()
     paf2chain(PafReader(open_input(paf)), want, None)
@@ -1166,7 +1203,7 @@ def phase_paf2chain_long(work, corpus, rng):
     log(f"paf2chain long records: wrote {os.path.getsize(paf)} B of PAF in "
         f"{time.perf_counter() - t0:.3f} s")
     out = os.path.join(work, "long.chain")
-    secs = run_cli(["paf2chain", paf, "-o", out, "-r"])
+    secs = run_cli(["paf2chain", paf, "-o", out, "-r"], "device_chain_scan")
     t0 = time.perf_counter()
     want = io.BytesIO()
     paf2chain(PafReader(open_input(paf)), want, None)
@@ -1228,7 +1265,9 @@ def phase_pafcov(work):
 
     paf = os.path.join(work, "smoke.paf")
     out = os.path.join(work, "smoke.cov.bed")
-    secs = run_cli(["pafcov", paf, "-o", out, "-r"])
+    argv = ["pafcov", paf, "-o", out, "-r"]
+    secs = run_cli(argv, "device_coverage")
+    keep_card_output("pafcov", argv)
     compare_with_host("pafcov", [out], lambda w: pafcov(
         PafReader(open_input(paf)), open_output(w[0], True), None), secs)
     os.remove(out)
@@ -1259,8 +1298,11 @@ def phase_stat_paf(work):
     bad = write_bad_paf(work)
     for each in (False, True):
         out = os.path.join(work, f"paf_stat{'_each' if each else ''}.tsv")
-        secs = run_cli(["stat", "-f", "paf", bad, "-o", out, "-r"]
-                       + (["-e"] if each else []))
+        argv = ["stat", "-f", "paf", bad, "-o", out, "-r"] + (
+            ["-e"] if each else [])
+        secs = run_cli(argv, "device_cigar_stats")
+        if not each:
+            keep_card_output("stat -f paf", argv)
         compare_with_host(f"stat -f paf each={each}", [out], lambda w:
                           stat_paf(PafReader(open_input(bad)),
                                    open_output(w[0], True), None, each), secs)
@@ -1276,12 +1318,15 @@ def phase_validate(work):
 
     bad = os.path.join(work, "bad.paf")
     report = os.path.join(work, "validate.txt")
-    secs = run_cli(["validate", bad, "-o", report, "-r"])
+    argv = ["validate", bad, "-o", report, "-r"]
+    secs = run_cli(argv, "device_cigar_stats")
+    keep_card_output("validate", argv)
     compare_with_host("validate", [report], lambda w: validate_paf(
         PafReader(open_input(bad)), open_output(w[0], True), None, False,
         None), secs)
     fixed = os.path.join(work, "fixed.paf")
-    secs = run_cli(["validate", bad, "-o", report, "-r", "-f", fixed])
+    secs = run_cli(["validate", bad, "-o", report, "-r", "-f", fixed],
+                   "device_cigar_stats")
     with open(report) as f:
         head = f.read(200)
     log("validate: " + ", ".join(head.splitlines()[:3]))
@@ -1299,7 +1344,9 @@ def phase_chain2paf(work):
 
     chain = os.path.join(work, "smoke.chain")
     out = os.path.join(work, "smoke.c2p.paf")
-    secs = run_cli(["chain2paf", chain, "-o", out, "-r"])
+    argv = ["chain2paf", chain, "-o", out, "-r"]
+    secs = run_cli(argv, "device_chain_sums")
+    keep_card_output("chain2paf", argv)
     compare_with_host("chain2paf", [out], lambda w: chain2paf(
         ChainReader(open_input(chain)), open_output(w[0], True), None), secs)
 
@@ -1434,7 +1481,9 @@ def phase_maf_tool(work, tool):
 
     maf = os.path.join(work, "smoke.maf")
     out = os.path.join(work, f"smoke.{tool}")
-    secs = run_cli([tool, maf, "-o", out, "-r"])
+    argv = [tool, maf, "-o", out, "-r"]
+    secs = run_cli(argv, "device_rle")
+    keep_card_output(tool, argv)
     t0 = time.perf_counter()
     want = io.BytesIO()
     getattr(convert, tool)(MafReader(open_input(maf)), want, None)
@@ -1467,7 +1516,9 @@ def phase_call(work, rng, chunk_size):
         log(f"call: wrote {os.path.getsize(maf)} B of MAF in "
             f"{time.perf_counter() - t0:.3f} s")
     argv = call_argv(work, chunk_size)
-    secs = run_cli(argv)
+    secs = run_cli(argv, "device_rle")
+    if chunk_size is None:
+        keep_card_output("call -s", argv)
     t0 = time.perf_counter()
     want = io.BytesIO()
     call_var_maf(MafReader(open_input(maf)), None, want, True, False, 50,
@@ -1481,6 +1532,118 @@ def phase_call(work, rng, chunk_size):
     lines = got.count(b"\n")
     log(f"call -c {chunk_size}: ok, {len(got)} B ({lines} lines) identical; "
         f"port {secs:.3f} s, host engine {host_secs:.3f} s")
+
+
+# `python -m wgatools_tpu_torch ARGS` in a process whose imports of torch
+# fail (forked pool workers inherit the hook) and that says at its end
+# whether torch was loaded
+NO_TORCH = """
+import runpy, sys
+
+class NoTorch:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "torch":
+            raise ImportError(f"{name} imported on the host route")
+
+sys.meta_path.insert(0, NoTorch())
+try:
+    runpy.run_module("wgatools_tpu_torch", run_name="__main__", alter_sys=True)
+finally:
+    print("torch loaded:", "torch" in sys.modules, file=sys.stderr)
+"""
+
+HOST_ROUTE = ("stat", "stat -f paf", "maf2paf", "maf2chain", "paf2chain",
+              "chain2paf", "call -s", "pafcov", "validate")
+
+
+def phase_host_route():
+    """Each device subcommand again as a process of `python -m
+    wgatools_tpu_torch` under WGA_TPU_DEVICE=0, on the file the card
+    route read: it must exit 0, write the card route's bytes (size and
+    SHA-256), log the host engine's route and no kernel launch, and end
+    without torch loaded."""
+    env = dict(os.environ, PYTHONPATH=REPO, WGA_TPU_DEVICE="0")
+    if sorted(CARD_OUTPUTS) != sorted(HOST_ROUTE):
+        raise AssertionError(f"host route: card outputs of {sorted(CARD_OUTPUTS)}")
+    walls = []
+    for name in HOST_ROUTE:
+        argv, want = CARD_OUTPUTS[name]
+        argv = list(argv)
+        out = argv[argv.index("-o") + 1] + ".hostroute"
+        argv[argv.index("-o") + 1] = out
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", NO_TORCH, *argv, "-v"],
+                              cwd=REPO, env=env, capture_output=True,
+                              text=True, timeout=PROGRAM_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        err = proc.stderr
+        what = f"host route {name}"
+        if proc.returncode != 0:
+            raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                                 f"{err[-4000:]}")
+        if "torch loaded: False" not in err.splitlines():
+            raise AssertionError(f"{what}: torch was loaded:\n{err[-4000:]}")
+        if "route: the host engine (WGA_TPU_DEVICE='0')" not in err:
+            raise AssertionError(f"{what} logged no host route:\n{err[-4000:]}")
+        if "kernel launches" in err:
+            raise AssertionError(f"{what} launched a kernel:\n{err[-4000:]}")
+        got = file_digest(out)
+        os.remove(out)
+        if got != want:
+            raise AssertionError(f"{what}: {got} differs from the card "
+                                 f"route's {want}")
+        walls.append(f"{name} {secs:.3f}")
+        log(f"{what}: ok, {got[0]} B identical to the card route's, no "
+            f"torch; process {secs:.3f} s")
+    log(f"host route process walls (s, WGA_TPU_DEVICE=0): {', '.join(walls)}")
+
+
+# what the start-up split times in one fresh process, after python itself
+START_SPLIT = """
+import json, time
+t = [time.perf_counter()]
+import torch
+t.append(time.perf_counter())
+torch.cuda.init()
+torch.zeros(1, device="cuda").sum().item()
+t.append(time.perf_counter())
+from wgatools_tpu_torch.kernels import _build
+_build.lib()
+t.append(time.perf_counter())
+print(json.dumps([b - a for a, b in zip(t, t[1:])]))
+"""
+
+
+def phase_process_start():
+    """The start of a card process, split once: the wall of `python -c
+    pass`, then in one fresh process `import torch`, the first CUDA context
+    (torch.cuda.init and one tiny op) and loading the already-built kernel
+    library (_build.lib).  Printed on one line with the card's name and
+    power limit."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "pass"], env=env, check=True)
+    bare = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", START_SPLIT], cwd=REPO,
+                          env=env, capture_output=True, text=True, check=True,
+                          timeout=PROGRAM_TIMEOUT_S)
+    whole = time.perf_counter() - t0
+    torch_s, cuda_s, lib_s = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"process start on {card_name_and_limit()}: python -c pass "
+        f"{bare:.3f} s; one process {whole:.3f} s = import torch "
+        f"{torch_s:.3f} s + CUDA context {cuda_s:.3f} s + kernel library "
+        f"{lib_s:.3f} s + the rest (python, exit) "
+        f"{whole - torch_s - cuda_s - lib_s:.3f} s")
+
+
+def card_name_and_limit():
+    """`nvidia-smi --query-gpu=name,power.limit` of the first card."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return smi.stdout.strip().splitlines()[0]
 
 
 def logged_launches(lines):
@@ -1809,7 +1972,7 @@ def phase_p2c_headline(work):
     log(f"p2c headline: wrote {records} records, {cols / 1e9:.3f} Gbp of "
         f"aligned columns, {os.path.getsize(paf)} B of PAF in "
         f"{time.perf_counter() - t0:.3f} s")
-    secs = run_cli(["paf2chain", paf, "-o", out, "-r"])
+    secs = run_cli(["paf2chain", paf, "-o", out, "-r"], "device_chain_scan")
     compare_with_host("p2c headline paf2chain", [out], lambda w: paf2chain(
         PafReader(open_input(paf)), open_output(w[0], True), None), secs)
     os.remove(paf)
@@ -1977,7 +2140,11 @@ def main():
     from wgatools_tpu_torch.scripts import make_corpus as corpus
 
     device = torch.device("cuda", 0)
+    # the card route for this process and every child it starts (each
+    # copies os.environ): an inherited WGA_TPU_DEVICE off value would send
+    # the tool phases to the host engine
     os.environ["WGA_TORCH_DEVICE"] = "cuda"
+    os.environ.pop("WGA_TPU_DEVICE", None)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -2026,6 +2193,8 @@ def main():
             ("call", lambda: phase_call(work, rng, None), ["classify_cat"]),
             ("call -c 16000000", lambda: phase_call(work, rng, 16_000_000),
              ["classify_bytes"]),
+            ("host route", phase_host_route, []),
+            ("process start", phase_process_start, []),
             ("sharded", lambda: phase_sharded(work, device, rng, gates,
                                               bench["full"]),
              ["classify_words", "classify_nibbles", "fused16", "fused_adv16",
@@ -2099,11 +2268,7 @@ def main():
         }
         for name, src, replaces in kernels
     ]}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_name_and_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,15 @@ The parser is a copy of wgatools_tpu/cli.py's: the same subcommand names,
 visible aliases, and global flags (-o/--outfile, -r/--rewrite,
 -t/--threads, -v).  Every subcommand runs on this package:
 
-- the device branches run on the device WGA_TORCH_DEVICE names
-  (core.device): `stat` (MAF and PAF), `call -f maf`, `maf2paf`,
-  `maf2chain`, `paf2chain`, `chain2paf`, `pafcov` and `validate`;
+- the device branches, `stat` (MAF and PAF), `call -f maf`, `maf2paf`,
+  `maf2chain`, `paf2chain`, `chain2paf`, `pafcov` and `validate`, run on
+  the device WGA_TORCH_DEVICE names ("cuda", the default, or "cpu"), unless
+  WGA_TPU_DEVICE is set to "", "0" or "false": then they run the host
+  engine, as the TPU package's CLI does, and the process imports no torch
+  (core.device; -v logs the route taken);
 - the host-only subcommands, `call -f paf`, and `-t > 1` on a plain file
-  (the fork pools of parallel.host_pool) run the host engine.
+  (the fork pools of parallel.host_pool) run the host engine, and import
+  no torch either.
 
 Under WGA_TPU_DIST the distributed modes run where wgatools_tpu/cli.py
 runs them: maf2paf, maf2chain, paf2chain, chain2paf, stat (MAF and PAF),
@@ -337,9 +341,24 @@ def _log_launches():
 
 
 def _device():
-    from .core.device import torch_device
+    """The device of a device branch: None, the host engine, when
+    WGA_TPU_DEVICE is "", "0" or "false" (torch is not imported); else the
+    torch device WGA_TORCH_DEVICE names.  -v logs which."""
+    from .core.device import ROUTE_ENV, device_requested, torch_device
 
-    return torch_device()
+    if not device_requested():
+        log.info("route: the host engine (%s=%r)", ROUTE_ENV,
+                 os.environ[ROUTE_ENV])
+        return None
+    device = torch_device()
+    if device.type == "cuda":
+        import torch
+
+        log.info("route: device %s (%s)", device,
+                 torch.cuda.get_device_name(device))
+    else:
+        log.info("route: device %s", device)
+    return device
 
 
 def dispatch(args):

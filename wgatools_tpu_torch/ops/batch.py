@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from ..core.cigar import EQ, D, I, X, Cigar, ext_runs, rec_stat_from_cigar
-
+from ..core.device import DEFAULT_BATCH_COLUMNS
+from ..core.metrics import METRICS
 from .classify import (
     STAT_DEL_EVENT,
     STAT_DEL_SIZE,
@@ -31,10 +32,6 @@ from .classify import (
     pack_cat_nibbles,
     pack_pairs,
 )
-
-# batch capacity in columns: a batch is flushed when its padded size would
-# pass this (32 MiB of category plane per batch)
-DEFAULT_BATCH_COLUMNS = 64 << 20
 
 # Records at or past this many columns go to the int64 host engine (the
 # reference's counters are u64, cigar.rs:629-707).  A module attribute so
@@ -177,18 +174,21 @@ def stream_seq_pair_stats(items, device, batch_columns=DEFAULT_BATCH_COLUMNS):
             return None
         t, q, lens = pack_pairs([(it[0], it[1]) for it in pending])
         cw = pack_cat_nibbles(t, q)  # pack_pairs aligns L to 128
-        if cuda:
-            cw_d, len_d = uploader.upload(cw, lens)
-            rows_d = classify_stat_cat(cw_d, len_d)
-            rows = torch.empty(rows_d.shape, dtype=torch.int32, pin_memory=True)
-            rows.copy_(rows_d, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(device))
-        else:
-            rows = classify_stat_cat(
-                torch.from_numpy(cw), torch.from_numpy(lens)
-            )
-            done = None
+        # the upload and the launches (on CUDA the wait is in drain)
+        with METRICS.stage("device_stats", cw.nbytes + lens.nbytes):
+            if cuda:
+                cw_d, len_d = uploader.upload(cw, lens)
+                rows_d = classify_stat_cat(cw_d, len_d)
+                rows = torch.empty(rows_d.shape, dtype=torch.int32,
+                                   pin_memory=True)
+                rows.copy_(rows_d, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(device))
+            else:
+                rows = classify_stat_cat(
+                    torch.from_numpy(cw), torch.from_numpy(lens)
+                )
+                done = None
         batch = [(it[2], it[3]) for it in pending]
         pending.clear()
         max_len = 0

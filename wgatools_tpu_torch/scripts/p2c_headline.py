@@ -7,9 +7,12 @@ number is `wgatools p2c` on the maize Zm-CML333 whole-genome PAF, mean
 the same aligned-column volume and record shape (~2000 records x 1000
 CIGAR runs, geometric run lengths of mean 1090), byte for byte the TPU
 script's; `main` times the port's command line `paf2chain` on it (the
-device route, kernel B, on the card unless WGA_TORCH_DEVICE=cpu), wall
-clock of the whole process, best of 3, and prints the TPU script's two
-lines.  Work files go to build/p2c_headline/.
+device route, kernel B, on the card unless WGA_TORCH_DEVICE=cpu; an
+inherited WGA_TPU_DEVICE is removed), wall clock of the whole process,
+best of 3, and prints the TPU script's two lines.  A third line times the
+same command best of 3 under WGA_TPU_DEVICE=0, the host engine in a
+process without torch: the route the TPU script timed.  Both routes must
+write the same bytes.  Work files go to build/p2c_headline/.
 
     python -m wgatools_tpu_torch.scripts.p2c_headline
 """
@@ -64,9 +67,21 @@ def main():
     k, total = build(paf)
     print(f"{k} records, {total / 1e9:.3f} Gbp aligned columns", flush=True)
     env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("WGA_TPU_DEVICE", None)
     best = min(_one(paf, out, env) for _ in range(3))
     print(f"paf2chain wall {best:.2f} s  (reference p2c: "
-          f"{REFERENCE_SECONDS} s -> {REFERENCE_SECONDS / best:.2f}x)")
+          f"{REFERENCE_SECONDS} s -> {REFERENCE_SECONDS / best:.2f}x)",
+          flush=True)
+    host_out = out + ".host"
+    host = min(_one(paf, host_out, dict(env, WGA_TPU_DEVICE="0"))
+               for _ in range(3))
+    with open(out, "rb") as f, open(host_out, "rb") as g:
+        if f.read() != g.read():
+            raise RuntimeError("paf2chain: the host route's bytes differ "
+                               "from the device route's")
+    print(f"paf2chain wall {host:.2f} s on the host engine "
+          f"(WGA_TPU_DEVICE=0)  (reference p2c: {REFERENCE_SECONDS} s -> "
+          f"{REFERENCE_SECONDS / host:.2f}x)")
     return 0
 
 

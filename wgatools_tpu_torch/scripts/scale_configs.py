@@ -14,7 +14,8 @@ records of 60 CIGAR runs; pseudomaf.rs:24-74).
 The corpus is scripts.make_corpus's (the TPU repo's generator, the same
 bytes), written to --out (build/scale_configs/ by default).  Every row is
 one `python -m wgatools_tpu_torch ... -v` process: serial on the card (the
-default device; the CLI's device routes, e.g. `pafcov` through kernel B),
+default device, with WGA_TPU_DEVICE removed from the rows' environment;
+the CLI's device routes, e.g. `pafcov` through kernel B),
 `-t 4` (the port's fork pools), and, for `call`, `pafcov` and `pafpseudo`,
 WGA_TPU_DIST with N = min(cards, 2) rank processes, one card each, merging
 over NCCL.  Under WGA_TORCH_DEVICE=cpu every row runs on the CPU and the
@@ -90,7 +91,11 @@ def logged_launches(log_path):
 
 
 def _env(**extra):
-    return dict(os.environ, PYTHONPATH=REPO, **extra)
+    """The rows' environment: WGA_TPU_DEVICE removed, so that the serial
+    rows take the device route (WGA_TORCH_DEVICE's device)."""
+    env = dict(os.environ, PYTHONPATH=REPO, **extra)
+    env.pop("WGA_TPU_DEVICE", None)
+    return env
 
 
 def _failed(what, rc, log_path):

@@ -15,7 +15,9 @@ category plane), a single chunk of DEVICE_MIN_COLUMNS or more goes up as
 a [1, n] batch (kernel D's byte route whenever n is not a multiple of 8),
 and smaller chunks take the host engine.  The variant scan over the run
 tables, the chunk plan and the VCF writer are shared with the host
-engine, so both write the same bytes when the run tables agree.
+engine, so both write the same bytes when the run tables agree.  Only that
+device route imports torch (batch_runs below), so `call -f paf` and the
+host engine never load it.
 """
 
 import logging
@@ -29,8 +31,6 @@ from ..errors import CigarOpInvalid
 from ..io.fasta import FastaReader
 from ..io.maf import MafRecord, MafSLine
 from ..io.vcf import VcfWriter
-from ..ops.classify import pack_pairs
-from ..ops.rle_device import batch_runs, split_run_tables
 
 log = logging.getLogger("wgatools_tpu_torch")
 
@@ -760,6 +760,14 @@ def call_var_paf(
 GROUP_BUDGET = 64 << 20
 
 
+def batch_runs(*args, **kwargs):
+    """ops.rle_device.batch_runs, imported at the first call (that module
+    loads torch)."""
+    from ..ops.rle_device import batch_runs
+
+    return batch_runs(*args, **kwargs)
+
+
 def caller_runs(t_arr, q_arr, device):
     """Caller-mode run table (cats uint8, lens int64) of one chunk: a
     [1, n] device batch from DEVICE_MIN_COLUMNS columns on, the host
@@ -805,6 +813,9 @@ def call_record(record, vcf, if_snp, if_inv, svlen_cutoff, device,
         nonlocal chunk_count
         runs_list = [None] * len(group)
         if len(group) > 1 and sum(e - s for s, e, _ in group) >= DEVICE_MIN_COLUMNS:
+            from ..ops.classify import pack_pairs
+            from ..ops.rle_device import split_run_tables
+
             t, q, lens = pack_pairs(
                 [(r.target_seq, r.query_seq) for _, _, r in group]
             )

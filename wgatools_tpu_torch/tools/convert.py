@@ -18,15 +18,20 @@ directions run their batch work there:
 Header trims, the boundary gathers and the PAF and chain writers are
 shared by both engines, so they write the same bytes when the device
 tables agree.  Batches below DEVICE_MIN_COLUMNS columns or DEVICE_MIN_OPS
-ops are answered by the host engine, as in the TPU package.
+ops are answered by the host engine, as in the TPU package.  Only the
+device branches import torch and the ops modules, so the host engine
+never loads torch.
 """
 
 import numpy as np
-import torch
 
 from .. import native
 from ..core import cigar as C
-from ..core.device import DEVICE_MIN_COLUMNS, DEVICE_MIN_OPS
+from ..core.device import (
+    DEFAULT_BATCH_COLUMNS,
+    DEVICE_MIN_COLUMNS,
+    DEVICE_MIN_OPS,
+)
 from ..core.metrics import METRICS
 from ..core.strand import Strand
 from ..errors import WGAError
@@ -38,10 +43,6 @@ from ..io.chain import (
 from ..io.fasta import FastaReader
 from ..io.maf import MafReader, MafRecord, MafSLine, MafWriter
 from ..io.paf import PafReader, PafRecord, PafWriter
-from ..ops.batch import DEFAULT_BATCH_COLUMNS, _PinnedUpload
-from ..ops.classify import pack_pairs
-from ..ops.liftover import chain_scan, int32_safe_record, pack_ops_batch
-from ..ops.rle_device import finish_runs, split_run_tables, start_runs
 
 
 def maf2paf(mafreader: MafReader, writer, device, query_name=None):
@@ -141,6 +142,10 @@ def _batched_ext_runs(mafreader, query_name, emit, device):
     parses and packs while the device works.  A batch holds up to
     DEFAULT_BATCH_COLUMNS padded columns; one of fewer than
     DEVICE_MIN_COLUMNS columns is answered by the host engine."""
+    from ..ops.batch import _PinnedUpload
+    from ..ops.classify import pack_pairs
+    from ..ops.rle_device import finish_runs, split_run_tables, start_runs
+
     uploader = _PinnedUpload(device) if device.type == "cuda" else None
     pending = []
     max_len = 0
@@ -260,6 +265,10 @@ def _paf2chain_device(pafreader, writer, device, batch_ops=1 << 20,
     """Batched pipeline: chain_scan tables on `device`, M-run boundary
     gathers + C++ formatting on the host.  Records without ops, or whose
     lengths sum to 2^31 or more, take the host path in order."""
+    import torch
+
+    from ..ops.liftover import chain_scan, int32_safe_record, pack_ops_batch
+
     if min_ops is None:
         min_ops = DEVICE_MIN_OPS
 
@@ -395,6 +404,8 @@ def _chain2paf_device(chainreader, writer, device, batch_lines=1 << 20,
     and cg strings formatted on the host.  A batch below `min_lines`
     (DEVICE_MIN_OPS) is answered by the host engine; a record whose sums
     reach 2^31 takes the int64 host path, in order."""
+    import torch
+
     if min_lines is None:
         min_lines = DEVICE_MIN_OPS
     paf_writer = PafWriter(writer)

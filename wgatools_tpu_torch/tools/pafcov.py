@@ -8,17 +8,15 @@ liftover scan (ops.liftover.coverage_span_table) per batch of op rows,
 scattered into the target's int32 difference array there
 (ops.coverage.scatter_spans), with one prefix sum per target at the end.
 The int64 host route for targets and records that would wrap int32 and
-the BED writer are shared by both.
+the BED writer are shared by both.  Only the device branch imports torch.
 """
 
 import numpy as np
-import torch
 
 from .. import native
 from ..core import cigar as C
 from ..core.cigar import raise_tokenize_error, strip_cg_prefix
-from ..ops.coverage import diff_to_coverage, scatter_spans
-from ..ops.liftover import coverage_span_table, pack_ops_batch
+from ..core.metrics import METRICS
 
 
 def coverage_spans(ops, lens, start: int):
@@ -90,6 +88,11 @@ def _pafcov_device(reader, writer, device, batch_ops=1 << 20):
     entries; a target whose difference array would pass 2^31 entries, and
     a record whose op lengths sum to 2^31 or more, take the int64 host
     route (added to the device counts at the end)."""
+    import torch
+
+    from ..ops.coverage import diff_to_coverage, scatter_spans
+    from ..ops.liftover import coverage_span_table, pack_ops_batch
+
     diff_dev = {}  # target -> device int32 [target_length + 1]
     host_diff = {}  # target -> host int64 [target_length + 1]
     pending = {}  # target -> (op_arrays, len_arrays, starts, total_ops)
@@ -98,13 +101,15 @@ def _pafcov_device(reader, writer, device, batch_ops=1 << 20):
     def flush(target):
         op_arrays, len_arrays, starts, _ = pending.pop(target)
         ops, lens = pack_ops_batch(op_arrays, len_arrays)
-        s, e = coverage_span_table(
-            torch.from_numpy(ops).to(device),
-            torch.from_numpy(lens).to(device),
-            torch.from_numpy(np.array(starts, dtype=np.int32)).to(device),
-        )
-        s, e = s.reshape(-1), e.reshape(-1)
-        scatter_spans(diff_dev[target], s, e, valid=(s >= 0).to(torch.int32))
+        with METRICS.stage("device_coverage", ops.nbytes + lens.nbytes):
+            s, e = coverage_span_table(
+                torch.from_numpy(ops).to(device),
+                torch.from_numpy(lens).to(device),
+                torch.from_numpy(np.array(starts, dtype=np.int32)).to(device),
+            )
+            s, e = s.reshape(-1), e.reshape(-1)
+            scatter_spans(diff_dev[target], s, e,
+                          valid=(s >= 0).to(torch.int32))
 
     for rec in reader.records():
         ops, lens = rec.get_cigar_ops()

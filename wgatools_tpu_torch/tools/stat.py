@@ -3,10 +3,11 @@
 Per-record RecStats come from the host CIGAR engine (device=None) or from
 the device: MAF records stream through ops.batch.stream_seq_pair_stats
 (kernel A), PAF records through the segment sums of
-tools.validate.stream_batch_stats.  Aggregation merges records keyed by
-(ref_name, ref_size, query_name, query_size) exactly like the reference,
-then natural-sorts rows by ref_name; both engines share it, so they write
-the same bytes when their counters agree.
+tools.validate.stream_batch_stats; only those device branches import torch.
+Aggregation merges records keyed by (ref_name, ref_size, query_name,
+query_size) exactly like the reference, then natural-sorts rows by
+ref_name; both engines share it, so they write the same bytes when their
+counters agree.
 """
 
 import itertools
@@ -15,10 +16,9 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core.cigar import RecStat, cigar_from_seqs, rec_stat_from_cigar, seq_bytes
-from ..core.device import DEVICE_MIN_COLUMNS
+from ..core.device import DEFAULT_BATCH_COLUMNS, DEVICE_MIN_COLUMNS
 from ..core.fmt import fmt_f32
 from ..core.natsort import rank_by_natural
-from ..ops.batch import DEFAULT_BATCH_COLUMNS, stream_seq_pair_stats
 from .validate import stream_batch_stats
 
 STAT_COLUMNS = (
@@ -277,6 +277,8 @@ def stat_maf(reader, writer, device, each=False, query_name=None,
             for t, q, neg, m in head
         )
     else:
+        from ..ops.batch import stream_seq_pair_stats
+
         results = stream_seq_pair_stats(
             itertools.chain(head, stream), device, batch_columns
         )

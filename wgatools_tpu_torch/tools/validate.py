@@ -7,18 +7,18 @@ Each record's counters come from the host CIGAR engine (device=None) or
 from batched segment sums on the device (ops.segments.cigar_batch_stats,
 stream_batch_stats); the checks, the report and the fixed-PAF writer are
 shared, so both engines write the same bytes when their counters agree.
-`stat -f paf` (tools.stat.stat_paf) shares the stream.
+`stat -f paf` (tools.stat.stat_paf) shares the stream, the only code here
+that imports torch.
 """
 
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
 from ..core.cigar import Cigar, rec_stat_from_cigar
+from ..core.metrics import METRICS
 from ..errors import CigarOpInvalid
 from ..io.paf import PafWriter
-from ..ops.segments import assert_stat_ops, cigar_batch_stats, pack_cigar_batch
 
 
 @dataclass
@@ -67,6 +67,14 @@ def stream_batch_stats(records, device, batch_ops=1 << 20):
     has been yielded, as in the host engine; a record whose op lengths sum
     to 2^31 or more takes the int64 host engine, in order (the device
     counters are int32)."""
+    import torch
+
+    from ..ops.segments import (
+        assert_stat_ops,
+        cigar_batch_stats,
+        pack_cigar_batch,
+    )
+
     pending = []  # (rec, ops, lens)
     total = 0
 
@@ -77,10 +85,13 @@ def stream_batch_stats(records, device, batch_ops=1 << 20):
         ops, lens, row_ids = pack_cigar_batch(
             [p[1] for p in pending], [p[2] for p in pending]
         )
-        rows = cigar_batch_stats(
-            *(torch.from_numpy(a).to(device) for a in (ops, lens, row_ids)),
-            len(pending),
-        ).cpu().numpy()
+        with METRICS.stage("device_cigar_stats",
+                           ops.nbytes + lens.nbytes + row_ids.nbytes):
+            rows = cigar_batch_stats(
+                *(torch.from_numpy(a).to(device)
+                  for a in (ops, lens, row_ids)),
+                len(pending),
+            ).cpu().numpy()
         for (rec, _, _), row in zip(pending, rows):
             yield rec, _stat_from_row(rec, row)
         pending.clear()
