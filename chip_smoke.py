@@ -117,12 +117,15 @@ import io
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import time
 
 import numpy as np
+
+# the kernels' main-path shapes and the timing loop, which the harness that
+# times the kernels across checkouts shares
+from wgatools_tpu_torch.scripts.kernel_times import Shapes, time_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -131,8 +134,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # stat MAF (~102 Mbp) and the paf2chain PAF (~4M ops, 4 device batches);
 # kernel D's call-route row and a 64 Mi-column batch of odd width; the
 # call MAF (~40 Mbp)
-BENCH_B, BENCH_L = 128, 1 << 20
-SCAN_ROWS, SCAN_N = 8192, 128
+MAIN = Shapes()
+BENCH_B, BENCH_L = MAIN.B, MAIN.L
+SCAN_ROWS, SCAN_N = MAIN.scan_rows, MAIN.scan_n
 # kernel B's long rows (few records of 10^5-10^6 CIGAR ops, as whole
 # assemblies aligned to each other give), and 2^20-slot batches on both
 # sides of its long-row threshold (4096 ops)
@@ -142,12 +146,12 @@ THRESHOLD_SCANS = ((512, 2048), (256, 4095), (256, 4096), (64, 16_384))
 LONG_PAF_RECORDS, LONG_PAF_RUNS = 8, 1 << 17
 MAF_RECORDS, MAF_COLUMNS = 512, 200_000
 PAF_RECORDS, PAF_RUNS = 100_000, 40
-CALL_ROW = 12_500_003
+CALL_ROW = MAIN.call_row
 BYTES_B, BYTES_L = 512, 131_073
 CALL_RECORDS, CALL_COLUMNS = 4, 10_000_003
 # the sharded phase: ops per row of the full-size op table, the coverage
 # genome and spans, the sequence-parallel scan's rows and ops
-SHARD_OPS = 1 << 15
+SHARD_OPS = MAIN.n_ops
 GENOME_LEN, N_SPANS = 1 << 28, 1_000_000
 SP_ROWS, SP_OPS = 8, 1 << 22
 # the distributed phase: ranks (one card each), modes run at once, the
@@ -207,29 +211,6 @@ def valid_columns(lengths, width):
     """Each row's columns a kernel must read: its length clamped to
     [0, width]."""
     return np.clip(np.asarray(lengths, np.int64), 0, width)
-
-
-def time_ms(fn, reps=20, rounds=5):
-    """Device time of one fn() call in ms: the median over `rounds` of CUDA
-    event windows around `reps` back-to-back calls, divided by `reps`.
-    The card spins (torch.cuda._sleep) while the host queues the calls, so
-    a window holds the calls' device time and not the host's launch cost."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    per_call = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)  # ~50 ms at H100 clocks
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        per_call.append(start.elapsed_time(end) / reps)
-    return statistics.median(per_call)
 
 
 class Gates:
@@ -798,37 +779,65 @@ def gate_plane_kernels(rng, device, gates, times, t0, q0, cw_np, lens_np):
         gate_all(f"random {k} B={b} LW={lw} B2={b2} NOH={noh}", r_planes,
                  r_len, words(b2, noh), words(b2, noh), words(b2, noh),
                  words(b2, noh), words(b2, noh))
-    gate_stream_edges(rng, device, gate_all, words)
+    gate_stream_edges(rng, device, gates, gate_all, words)
     return host
 
 
-def gate_stream_edges(rng, device, gate_all, words):
+def gate_stream_edges(rng, device, gates, gate_all, words):
     """The edges of the byte-word and nibble loops of cat_stream.cuh
-    (kernels E, F, C and D's word entry), on arbitrary words in both modes:
-    LW % 4 in {1, 2, 3} (every row its own 16-byte head); only t, or only
-    q, 1-3 words past an aligned base (t and q bases differ mod 16: every
-    word one lane each); one nibble row of 2^24 + 8k + 3 columns (every
-    warp ends in the same row: block_flush); 100 000 rows of at most 64
-    columns (many row changes per warp); F and C with B2 = 0, B2 < B and
-    B2 > B.  Times E on the long row."""
+    (kernels E, F, C, 8 and D's word entry), on arbitrary words in both
+    modes: LW % 4 in {1, 2, 3} (every row its own 16-byte head); only t, or
+    only q, 1-3 words past an aligned base (t and q bases differ mod 16:
+    every word one lane each); one nibble row of 2^24 + 8k + 3 columns
+    (every warp ends in the same row: block_flush); 100 000 rows of at most
+    64 columns (many row changes per warp); F, C and 8 with B2 = 0, B2 < B
+    and B2 > B.  Kernel 8 takes every byte-word shape in both op forms, on
+    op rows whose length is no multiple of a scan pass (SCAN_V x 256
+    threads at a width of 4 or 8).  Times E on the long row."""
+    import torch
+
     from wgatools_tpu_torch.ops import classify as C
+    from wgatools_tpu_torch.ops import fused as F
 
     def ops(b2, noh):
         return [words(b2, noh) for _ in range(5)]
 
-    for lw, b, b2 in ((1001, 37, 5), (1002, 9, 40), (1003, 20, 20)):
+    def gate8(label, planes, lens, b2, noh):
+        """Kernel 8 on the byte words of `planes`: arbitrary packed words,
+        and any op bytes with arbitrary int32 lengths (the sums wrap)."""
+        packed = words(b2, noh)
+        op_bytes = torch.from_numpy(
+            rng.integers(0, 256, (b2, noh), dtype=np.uint8)).to(device)
+        op_lens = words(b2, noh)
+        for caller in (False, True):
+            for form, args in (("packed", (packed, None)),
+                               ("u8+i32", (op_bytes, op_lens))):
+                gates.check(
+                    "fused_ops", f"{label} B2={b2} NO={noh} {form} "
+                    f"caller={caller}",
+                    F.classify_liftover_fused(*planes["words"], lens, *args,
+                                              device, caller),
+                    F.classify_liftover_fused_ref(*planes["words"], lens,
+                                                  *args, caller),
+                )
+
+    for lw, b, b2, no8 in ((1001, 37, 5, 2047), (1002, 9, 40, 2049),
+                           (1003, 20, 20, 6143)):
         planes = {"words": (words(b, lw), words(b, lw)),
                   "nibble": (words(b, lw), words(b, lw))}
         lens = up_lengths(rng, device, b, 8 * lw)
-        gate_all(f"stream LW={lw} B={b} B2={b2}", planes, lens,
+        label = f"stream LW={lw} B={b}"
+        gate_all(f"{label} B2={b2}", planes, lens,
                  *ops(b2, int(rng.integers(1, 3000))))
+        gate8(label, planes, lens, b2, no8)
         for side in ("t", "q"):
             for off in (1, 2, 3):
                 moved = {kind: (shifted(t, 4 * off), q) if side == "t"
                          else (t, shifted(q, 4 * off))
                          for kind, (t, q) in planes.items()}
-                gate_all(f"stream LW={lw} B={b} {side}+{off} words", moved,
-                         lens, *ops(b2, 64))
+                label = f"stream LW={lw} B={b} {side}+{off} words"
+                gate_all(label, moved, lens, *ops(b2, 64))
+                gate8(label, moved, lens, b2, 1000 + off)
     k = int(rng.integers(0, 1000))
     for n in (1 << 24) + 8 * k + 3, (1 << 24) + 3:  # the timed row last
         lw = (n + 7) // 8
@@ -844,16 +853,19 @@ def gate_stream_edges(rng, device, gate_all, words):
     del tn, qn
     b = 100_000
     lens = up_lengths(rng, device, b, 64)
-    gate_all(f"stream {b} rows of <= 64 columns",
-             {"words": (words(b, 16), words(b, 16)),
-              "nibble": (words(b, 8), words(b, 8))}, lens, *ops(b, 3))
+    planes = {"words": (words(b, 16), words(b, 16)),
+              "nibble": (words(b, 8), words(b, 8))}
+    label = f"stream {b} rows of <= 64 columns"
+    gate_all(label, planes, lens, *ops(b, 3))
+    gate8(label, planes, lens, b, 3)
     b, lw = 64, 1 << 14
     planes = {"words": (words(b, lw), words(b, lw)),
               "nibble": (words(b, lw), words(b, lw))}
     lens = up_lengths(rng, device, b, 8 * lw)
     for b2 in (0, 17, 200):
-        gate_all(f"stream B={b} LW={lw} B2={b2}", planes, lens,
-                 *ops(b2, 1000))
+        label = f"stream B={b} LW={lw}"
+        gate_all(f"{label} B2={b2}", planes, lens, *ops(b2, 1000))
+        gate8(label, planes, lens, b2, 4101)
 
 
 def torch_lengths(device, lengths):

@@ -1,43 +1,24 @@
-// Column statistics over a plane of aligned column pairs: the device code
-// shared by kernels A (classify_cat.cu), D and its word entry
-// (classify_bytes.cu), E (classify_nibbles.cu) and the fused kernels C, F
-// and 8 (fused.cuh).  Every plane but kernel 8's streams through the
-// persistent warps of cat_stream.cuh, which count their ragged edges with
-// count_word and cat_nibbles below; kernel 8's byte words alone go
-// through the per-chunk loop below (BytePlane, plane_stats_chunk).
+// Column statistics over a plane of aligned column pairs: the counting
+// words shared by the column loops of cat_stream.cuh (kernels A, D and its
+// word entry, E, and the fused kernels C, F and 8 of fused.cuh).
 //
 // Replaces the bodies of wgatools_tpu/ops/classify.py::_kernel_cat,
-// _kernel (byte planes), _kernel_words and _kernel_nibbles.  Every plane is
-// turned, 8 columns at a time, into the word of one-hot category nibbles the
-// host 64K (t, q) LUT gives (X=0 EQ=1 I=2 D=4 GG=9; column j of the group in
-// bits [4j, 4j+4)), and counted by count_word.  Output is int32 [B, 8]
-// per-record counters (matched, mismatched, ins_size, del_size, ins_events,
-// del_events, gap/gap, runs).  The planes (cat_stream.cuh unless said):
-//   CatPlane      int32 [B, LW] category words, read as they are (kernels
-//                 A and C);
-//   ByteStream    uint8 t, q [B, L] of any width and base alignment; an
-//                 int32 [B, LW] byte-word plane is the same buffer with
-//                 L = 4 LW (kernels D, F and C);
-//   NibbleStream  int32 t, q [B, LW] 4-bit dictionary codes, gap = 0, code
-//                 equality = byte equality (kernels E, F and C);
-//   BytePlane     kernel 8's byte words, here.
-//
-// Bound: memory.  0.5 B per column (cat), 1 B (nibbles) or 2 B (bytes)
-// against a few integer ops and seven __popc per 8 columns: 128 x 2^20
-// columns of cat plane is 64 MiB, about 20 us at 3.35 TB/s.
-//
-// Design of the per-chunk loop: a block owns CAT_CHUNK_GROUPS groups of 8 columns of one row,
-// each thread a strided subset of them (neighbouring threads on neighbouring
-// groups).  Columns >= lengths[b] are masked here, so none of the TPU
-// kernels' gap-padding corrections (_finish_stats, the edge side output,
-// 16-bit counter fields, rows rounded up to 8) exist.  A group's run
-// boundary reads the column before it from memory (L1), never a value
-// carried between threads or blocks.  Each block reduces its counters and
-// adds them with integer atomics into a zeroed [B, 8] buffer: exact in any
-// order, so every counter is linear per chunk (mismatched = valid - (EQ|GG)
-// - I - D, caller-mode matched = bit0 - GG).
-// Left for later on kernel 8's byte words: the persistent blocks, 16-byte
-// loads and bit-sliced counts of cat_stream.cuh.
+// _kernel (byte planes), _kernel_words and _kernel_nibbles.  A plane's
+// columns, 8 at a time, are the word of one-hot category nibbles the host
+// 64K (t, q) LUT gives (X=0 EQ=1 I=2 D=4 GG=9; column j of the group in
+// bits [4j, 4j+4)).  Output is int32 [B, 8] per-record counters (matched,
+// mismatched, ins_size, del_size, ins_events, del_events, gap/gap, runs).
+// The loops count whole 16-byte loads bit-sliced (cat_stream.cuh); the
+// ragged words of a row (its head before a 16-byte boundary, its tail, its
+// partial last word, rows whose t and q bases differ mod 16) are built
+// here (byte_cats, cat_nibbles) and counted one word at a time by
+// count_word, reading the column before from memory.  Columns >=
+// lengths[b] are masked (valid_nibbles), so none of the TPU kernels'
+// gap-padding corrections (_finish_stats, the edge side output, 16-bit
+// counter fields, rows rounded up to 8) exist.  Counters are added with
+// integer atomics into a zeroed [B, 8] buffer (atomic_add_stats): exact in
+// any order, so every counter is linear per range of columns (mismatched =
+// valid - (EQ|GG) - I - D, caller-mode matched = bit0 - GG).
 #pragma once
 
 #include <cstdint>
@@ -47,8 +28,6 @@
 namespace wga {
 
 constexpr int N_STATS = 8;
-constexpr int CAT_THREADS = 256;
-constexpr long long CAT_CHUNK_GROUPS = 2048;  // 16K columns per block
 
 constexpr uint32_t M1 = 0x11111111u;  // bit 0 of every nibble
 constexpr uint32_t M7 = 0x77777777u;  // bits 0-2 of every nibble
@@ -116,39 +95,7 @@ __device__ __forceinline__ void atomic_add_stats(const uint32_t (&s)[7],
   atomicAdd(o + 7, static_cast<int>(s[4]));
 }
 
-// Reduces the block's count_word counters and adds them into o = out[row]
-// as the eight stats; `valid` is the number of valid columns the block
-// covered.  Must be called by every thread of the block.
-template <bool CALLER>
-__device__ __forceinline__ void add_chunk_counters(const uint32_t (&c)[7],
-                                                   uint32_t valid, int* o) {
-  __shared__ uint32_t part[32][7];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < 7; ++j) {
-    uint32_t v = c[j];
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
-    if (lane == 0) part[warp][j] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t s[7] = {0, 0, 0, 0, 0, 0, 0};
-    const int nwarps = (blockDim.x + 31) >> 5;
-    for (int w = 0; w < nwarps; ++w) {
-#pragma unroll
-      for (int j = 0; j < 7; ++j) s[j] += part[w][j];
-    }
-    atomic_add_stats<CALLER>(s, valid, o);
-  }
-}
-
-// ---- planes ---------------------------------------------------------------
-// cats(row, g, n): the category word of columns [8g, 8g + 8) of the row,
-// whose first n columns are valid (8g < n); nibbles past n are unspecified.
-// prev(row, g): the category of column 8g - 1 (g >= 1).  cols: columns per
-// row.
+// ---- the category words of ragged columns --------------------------------
 
 // 0x01 in each byte where the bytes of a and b are equal.
 __device__ __forceinline__ uint32_t eq_bytes(uint32_t a, uint32_t b) {
@@ -216,56 +163,6 @@ __device__ __forceinline__ uint32_t byte_cats(const uint8_t* t,
 __device__ __forceinline__ uint32_t byte_cat(const uint8_t* t,
                                              const uint8_t* q) {
   return cat_bytes(__ldg(t), __ldg(q)) & 0xfu;
-}
-
-// Kernel 8's byte plane, through plane_stats_chunk.
-struct BytePlane {
-  const uint8_t* t;
-  const uint8_t* q;
-  long long L;  // bytes per row; row b starts at byte b * L
-  __device__ __forceinline__ long long cols() const { return L; }
-  __device__ __forceinline__ uint32_t cats(long long row, long long g,
-                                           long long n) const {
-    const long long col = 8 * g;
-    const int nb = n - col >= 8 ? 8 : static_cast<int>(n - col);
-    return byte_cats(t + row * L + col, q + row * L + col, nb);
-  }
-  __device__ __forceinline__ uint32_t prev(long long row, long long g) const {
-    const long long i = row * L + 8 * g - 1;
-    return byte_cat(t + i, q + i);
-  }
-};
-
-// Blocks per row for a plane of `cols` columns.
-inline long long stat_chunks(long long cols) {
-  const long long groups = (cols + 7) / 8;
-  return (groups + CAT_CHUNK_GROUPS - 1) / CAT_CHUNK_GROUPS;
-}
-
-// Counters of groups [chunk * CAT_CHUNK_GROUPS, ...) of one row, added into
-// out[row, :].  Must be called by every thread of the block.
-template <bool CALLER, class Plane>
-__device__ __forceinline__ void plane_stats_chunk(
-    const Plane& p, const int* __restrict__ lengths, int* __restrict__ out,
-    long long row, long long chunk) {
-  long long n = lengths[row];
-  const long long cols = p.cols();
-  n = n < 0 ? 0 : (n > cols ? cols : n);
-  const long long ng = (n + 7) >> 3;
-  const long long g0 = chunk * CAT_CHUNK_GROUPS;
-  if (g0 >= ng) return;  // uniform over the block
-  const long long g1 = g0 + CAT_CHUNK_GROUPS < ng ? g0 + CAT_CHUNK_GROUPS : ng;
-
-  uint32_t c[7] = {0, 0, 0, 0, 0, 0, 0};
-  for (long long g = g0 + threadIdx.x; g < g1; g += blockDim.x) {
-    // n - 8g >= 1 because g < ng
-    const uint32_t w = p.cats(row, g, n);
-    const uint32_t prev = g ? p.prev(row, g) : 0u;
-    count_word<CALLER>(w, prev, g == 0, valid_nibbles(n - 8 * g), c);
-  }
-  const long long hi = 8 * g1 < n ? 8 * g1 : n;
-  add_chunk_counters<CALLER>(c, static_cast<uint32_t>(hi - 8 * g0),
-                             out + row * N_STATS);
 }
 
 }  // namespace wga

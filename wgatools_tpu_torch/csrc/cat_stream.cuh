@@ -3,11 +3,13 @@
 // loop (stream_warp) over two planes of column pairs: the byte plane of
 // kernel D and its word entry (classify_bytes.cu) and of kernels F and C
 // on byte words, and the nibble plane of kernel E (classify_nibbles.cu)
-// and of kernels F and C on nibble words (fused.cuh).  Only kernel 8's
-// byte words keep the per-chunk loop of cat_stats.cuh (plane_stats_chunk).
+// and of kernels F and C on nibble words (fused.cuh).  Kernel 8's byte
+// words take the byte plane too (fused.cuh), so every kernel's columns
+// stream through these loops.
 //
 // Bound.  128 x 2^20 columns of cat plane is 64 MiB: 20 us at 3.35 TB/s.
-// The per-chunk loop counted each 8-column word with seven __popc and ~25
+// The first port's per-chunk loop (one block per 16K columns of a row,
+// since deleted) counted each 8-column word with seven __popc and ~25
 // integer ops, so at 2^24 words over 132 SMs (64 integer lanes and 16
 // __popc a clock each) it issued about as long as it measured (66 us): it
 // was bound by integer issue, not by memory.  This loop spends ~12 integer
@@ -28,7 +30,7 @@
 //   when the row changes and at the end of its range.  No __syncthreads
 //   and no shared memory: at most (rows a range touches) x 8 atomics per
 //   warp: ~26 000 at B=128 x 2^20 on 132 SMs (3168 warps, 128 row ends),
-//   against the per-chunk loop's 65 536 from 8192 block reductions.
+//   against the per-chunk loop's 65 536 from its 8192 block reductions.
 // - The category before a word: within a uint4 from the word before it,
 //   across lanes by __shfl_up_sync of the lane before's last word, and
 //   across a segment's batches from lane 31 of the batch before.  Only
@@ -37,7 +39,7 @@
 //   four words' category bits are transposed (delta swaps) so that each
 //   output word holds one category bit of all four: seven __popc per 16-B
 //   load.  The bit meanings and counters are count_word's exactly, for any
-//   nibble, so the counters equal the per-chunk loop's.
+//   nibble, so the counters equal count_word's one word at a time.
 // - Ragged edges: words before a segment's first 16-B boundary (a row's
 //   base need not be aligned: LW % 4 != 0), words after its last uint4,
 //   and the row's partial last word (valid_nibbles) go through count_word,
@@ -277,12 +279,12 @@ cudaError_t resident_blocks(Kernel kernel, int* blocks) {
 // ---- the byte plane (kernel D; kernels F and C on byte words) ---------------
 //
 // Bound.  Two bytes are read per column: [1, 12 500 003] is 25 MB, 7.46 us
-// at 3.35 TB/s.  The per-chunk loop (BytePlane) spent 2-3 aligned 4-byte
-// loads and funnel shifts per plane per 8 columns, built the category
-// nibble word (cat_bytes, bytes_to_nibbles twice), counted it with seven
-// __popc, and read the column before from memory: 70-80 integer ops and
-// seven quarter-rate __popc per 8 columns, with 8 B in flight per plane
-// per thread.
+// at 3.35 TB/s.  The first port's per-chunk loop, since deleted, spent
+// 2-3 aligned 4-byte loads and funnel shifts per plane per 8 columns,
+// built the category nibble word (byte_cats), counted it with seven __popc,
+// and read the column before from memory: 70-80 integer ops and seven
+// quarter-rate __popc per 8 columns, with 8 B in flight per plane per
+// thread.  It is what the ragged edges below still do, one lane a word.
 //
 // Design: cat_stream_warp's loop with two planes.
 // - Work: a row is cut into warp segments of BS_SEG (1024) columns whose

@@ -4,18 +4,15 @@
 // One launch reads a column plane and the op words of a matching table,
 // and writes the [B, 8] counters of the plane and the exclusive per-row
 // scans of the op words.  The first B2 blocks each scan one op row
-// (row_scan.cuh); the rest count the columns.  On a category plane (C's
-// catmode) they are kernel A's persistent blocks (cat_stream.cuh:
-// cat_stream_warp); on byte words and nibble words (F, and C's other
-// modes) the persistent blocks of kernels D and E (cat_stream.cuh:
-// stream_warp); kernel 8's byte words alone keep the per-chunk loop
-// (cat_stats.cuh: BytePlane, plane_stats_chunk), one block per column
-// chunk.  The scan blocks come first so that they start while the columns
-// stream.  B2 may differ from B; the two parts never mix rows.  The TPU
-// kernels carried each row's scan across a sequential column grid in
-// scratch, in three formulations (scan_mode vpu / mm / once, chunk,
-// tiles); a block walking its whole row gives the same sums, so those
-// choices have no counterpart.
+// (row_scan.cuh); the rest are persistent column blocks.  On a category
+// plane (C's catmode) they are kernel A's (cat_stream.cuh:
+// cat_stream_warp); on byte words (F, C and 8) and nibble words (F and C)
+// those of kernels D and E (cat_stream.cuh: stream_warp).  The scan blocks
+// come first so that they start while the columns stream.  B2 may differ
+// from B; the two parts never mix rows.  The TPU kernels carried each
+// row's scan across a sequential column grid in scratch, in three
+// formulations (scan_mode vpu / mm / once, chunk, tiles); a block walking
+// its whole row gives the same sums, so those choices have no counterpart.
 //
 // The op words (int32 [B2, NOH] per direction, or one packed plane, or
 // kernel 8's op table):
@@ -42,7 +39,6 @@
 
 #include <cuda_runtime.h>
 
-#include "cat_stats.cuh"
 #include "cat_stream.cuh"
 #include "op_advance.cuh"
 #include "row_scan.cuh"
@@ -224,55 +220,11 @@ struct PackedOps {
 namespace {
 
 // consecutive elements a thread per pass of the op-row scan blocks
-// (block_exclusive_scan2_runs) of kernels C and F, and of kernel 8, whose
-// per-chunk column blocks share the scan's registers: at 8 they lose more
-// occupancy in its uint8 ops + int32 lens form than the scan gains, and 4
-// is the faster in both op forms
+// (block_exclusive_scan2_runs) of kernels C, F and 8: on the H100, 8 is
+// ~2% faster than 4 for each, kernel 8 in both op forms included
 constexpr int SCAN_V = 8;
-constexpr int FUSED_OPS_SCAN_V = 4;
 
-template <bool CALLER, class Plane, class Ops>
-__global__ void __launch_bounds__(wga::CAT_THREADS)
-    fused_kernel(Plane p, const int* __restrict__ lengths,
-                 int* __restrict__ stats, Ops ops, long long nchunks,
-                 long long B2) {
-  const long long b = blockIdx.x;
-  if (b < B2) {
-    wga::block_exclusive_scan2_runs<FUSED_OPS_SCAN_V, wga::CAT_THREADS>(
-        ops.row(b), ops.a.NOH);
-    return;
-  }
-  const long long c = b - B2;
-  wga::plane_stats_chunk<CALLER>(p, lengths, stats, c / nchunks, c % nchunks);
-}
-
-// Kernel 8's launch: plane p's counters over B rows of `cols` columns into
-// the zeroed int32 [B, 8] stats, and the scans of B2 op rows.  Returns
-// cudaGetLastError().
-template <class Plane, class Ops>
-int launch_fused(const Plane& p, long long cols, const void* lengths,
-                 void* stats, int B, const Ops& ops, int B2, int caller,
-                 void* stream) {
-  const long long nchunks = (B > 0 && cols > 0) ? wga::stat_chunks(cols) : 0;
-  const long long scan_rows = (B2 > 0 && ops.a.NOH > 0) ? B2 : 0;
-  const long long blocks = scan_rows + static_cast<long long>(B) * nchunks;
-  if (blocks == 0) return static_cast<int>(cudaGetLastError());
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const auto* n = static_cast<const int*>(lengths);
-  auto* o = static_cast<int*>(stats);
-  auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(blocks));
-  if (caller) {
-    fused_kernel<true, Plane, Ops>
-        <<<grid, wga::CAT_THREADS, 0, s>>>(p, n, o, ops, nchunks, scan_rows);
-  } else {
-    fused_kernel<false, Plane, Ops>
-        <<<grid, wga::CAT_THREADS, 0, s>>>(p, n, o, ops, nchunks, scan_rows);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The same launch on a category plane: B2 scan blocks, then about (SMs x
+// The launch on a category plane: B2 scan blocks, then about (SMs x
 // resident blocks) persistent column blocks whose warps stream contiguous
 // ranges of (row, segment) pairs (cat_stream.cuh).
 template <bool CALLER, class Ops>

@@ -14,9 +14,10 @@
 // "mm" scan) is gone, as in kernel B.
 //
 // Memory-bound: 2 B per column of plane plus 4-5 B in and 8 B out per op
-// against 3.35 TB/s.  The same launch as kernels C and F (fused.cuh): B2
-// op-row scan blocks, then the column chunks; only the op-row decode
-// differs.
+// against 3.35 TB/s.  The same launch as kernel F's byte words and kernel
+// C's word mode (fused.cuh: launch_fused_stream): B2 op-row scan blocks,
+// then persistent column blocks on cat_stream.cuh's byte-plane loop (the
+// loop of kernel D's word entry); only the op-row decode differs.
 
 #include <cstdint>
 
@@ -25,14 +26,15 @@
 #include "fused.cuh"
 
 // lens null: ops are packed int32 words; otherwise ops are uint8 and lens
-// int32.  stats must be zeroed by the caller.  Returns cudaGetLastError().
+// int32.  stats: int32 [B, 8] zeroed by the caller; scratch: one int32
+// word, any contents.  Returns cudaGetLastError().
 extern "C" int wga_fused_ops(const void* tw, const void* qw,
                              const void* lengths, const void* ops,
-                             const void* lens, void* stats, void* t_off,
-                             void* q_off, int B, long long LW, int B2,
-                             long long NO, int caller, void* stream) {
-  const wga::BytePlane p{static_cast<const uint8_t*>(tw),
-                         static_cast<const uint8_t*>(qw), 4 * LW};
+                             const void* lens, void* stats, void* scratch,
+                             void* t_off, void* q_off, int B, long long LW,
+                             int B2, long long NO, int caller, void* stream) {
+  const wga::ByteStream p{static_cast<const uint8_t*>(tw),
+                          static_cast<const uint8_t*>(qw), 4 * LW};
   const wga::OpTable a{static_cast<const int*>(ops),
                        static_cast<const int*>(lens),
                        static_cast<int*>(t_off),
@@ -41,10 +43,10 @@ extern "C" int wga_fused_ops(const void* tw, const void* qw,
                        nullptr,
                        NO};
   if (lens == nullptr) {
-    return launch_fused(p, 4 * LW, lengths, stats, B, wga::PackedOps{a}, B2,
-                        caller, stream);
+    return launch_fused_stream(p, lengths, stats, scratch, B,
+                               wga::PackedOps{a}, B2, caller, stream);
   }
-  return launch_fused(p, 4 * LW, lengths, stats, B,
-                      wga::OpsLens{a, static_cast<const uint8_t*>(ops)}, B2,
-                      caller, stream);
+  return launch_fused_stream(p, lengths, stats, scratch, B,
+                             wga::OpsLens{a, static_cast<const uint8_t*>(ops)},
+                             B2, caller, stream);
 }

@@ -46,7 +46,12 @@ SIGNATURES = {
     "liftover_scan": [_P, _P, _P, _P, _P, _I, _LL, _I],
     "fused_adv16": [_I, *[_P] * 11, _I, _LL, _I, _LL, _I, _I, _I],
     "fused16": [_I, *[_P] * 10, _I, _LL, _I, _LL, _I],
-    "fused_ops": [*[_P] * 8, _I, _LL, _I, _LL, _I],
+    "fused_ops": [*[_P] * 9, _I, _LL, _I, _LL, _I],
+}
+# the library's other C entry points: (argument types, result type)
+HELPERS = {
+    "error_string": ([_I], ctypes.c_char_p),
+    "liftover_scan_scratch": ([_I, _LL], _LL),
 }
 
 LAUNCHES = {name: 0 for name in SIGNATURES}
@@ -141,10 +146,10 @@ def lib():
                 fn = getattr(handle, "wga_" + name)
                 fn.argtypes = argtypes + [_P]
                 fn.restype = _I
-            handle.wga_error_string.argtypes = [_I]
-            handle.wga_error_string.restype = ctypes.c_char_p
-            handle.wga_liftover_scan_scratch.argtypes = [_I, _LL]
-            handle.wga_liftover_scan_scratch.restype = _LL
+            for name, (argtypes, restype) in HELPERS.items():
+                fn = getattr(handle, "wga_" + name)
+                fn.argtypes = argtypes
+                fn.restype = restype
             _lib = handle
         return _lib
 

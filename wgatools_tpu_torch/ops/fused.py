@@ -144,8 +144,8 @@ def _check_fused(name, kind, tw, qw, lengths, op_planes, scan_mode):
 
 
 def _stats_and_scratch(B, device):
-    """The zeroed int32 [B, 8] stats of kernels C and F, and the one int32
-    word of scratch their launch zeroes and counts its work in."""
+    """The zeroed int32 [B, 8] stats of kernels C, F and 8, and the one
+    int32 word of scratch their launch zeroes and counts its work in."""
     return (torch.zeros((B, N_STATS), dtype=torch.int32, device=device),
             torch.empty(1, dtype=torch.int32, device=device))
 
@@ -279,9 +279,9 @@ def classify_liftover_fused(tw, qw, lengths, ops, lens, device, caller=False,
                 "classify_liftover_fused takes uint8 ops of the lens' shape "
                 f"(got {ops.dtype} {tuple(ops.shape)})"
             )
-    stats = torch.zeros((B, N_STATS), dtype=torch.int32, device=device)
+    stats, scratch = _stats_and_scratch(B, device)
     t_off, q_off = (torch.empty((B2, NO), dtype=torch.int32, device=device)
                     for _ in range(2))
-    _build.launch("fused_ops", tw, qw, lengths, ops, lens, stats, t_off,
-                  q_off, B, LW, B2, NO, int(caller))
+    _build.launch("fused_ops", tw, qw, lengths, ops, lens, stats, scratch,
+                  t_off, q_off, B, LW, B2, NO, int(caller))
     return stats, t_off, q_off
