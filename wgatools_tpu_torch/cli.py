@@ -33,6 +33,7 @@ import argparse
 import logging
 import os
 import re
+import sys
 
 from . import __version__
 from .core.metrics import METRICS, maybe_trace
@@ -312,6 +313,7 @@ def main(argv=None):
     try:
         with maybe_trace(), METRICS.stage("total"):
             dispatch(args)
+            METRICS.settle(wait=True)
         done = True
     except WGAError as e:
         log.error(str(e))
@@ -343,21 +345,35 @@ def _log_launches():
 def _device():
     """The device of a device branch: None, the host engine, when
     WGA_TPU_DEVICE is "", "0" or "false" (torch is not imported); else the
-    torch device WGA_TORCH_DEVICE names.  -v logs which."""
+    torch device WGA_TORCH_DEVICE names.  -v logs which.
+
+    The device route's process start happens here, each part in its METRICS
+    stage the first time: `import_torch`, `cuda_init` (the first allocation
+    on the card creates the context) and `lib_load` (the native library)."""
+    from . import native
     from .core.device import ROUTE_ENV, device_requested, torch_device
 
     if not device_requested():
         log.info("route: the host engine (%s=%r)", ROUTE_ENV,
                  os.environ[ROUTE_ENV])
         return None
+    if "torch" not in sys.modules:
+        with METRICS.stage("import_torch"):
+            import torch  # noqa: F401
     device = torch_device()
     if device.type == "cuda":
         import torch
 
+        if not torch.cuda.is_initialized():
+            with METRICS.stage("cuda_init"):
+                torch.empty(1, device=device)
         log.info("route: device %s (%s)", device,
                  torch.cuda.get_device_name(device))
     else:
         log.info("route: device %s", device)
+    if not native.loaded():
+        with METRICS.stage("lib_load"):
+            native.load()
     return device
 
 

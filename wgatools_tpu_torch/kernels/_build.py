@@ -23,6 +23,8 @@ import threading
 
 import torch
 
+from ..core.metrics import METRICS
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "wgatools_tpu_torch")
@@ -134,23 +136,25 @@ def build(build_dir) -> str:
 
 
 def lib():
-    """The loaded kernel library, built first if missing or stale."""
+    """The loaded kernel library, built first if missing or stale; the
+    first load is the METRICS stage `lib_load`."""
     global _lib
     with _lock:
         if _lib is None:
-            lib_path = os.path.join(BUILD_DIR, LIB_NAME)
-            if _stale(lib_path):
-                build(BUILD_DIR)
-            handle = ctypes.CDLL(lib_path)
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(handle, "wga_" + name)
-                fn.argtypes = argtypes + [_P]
-                fn.restype = _I
-            for name, (argtypes, restype) in HELPERS.items():
-                fn = getattr(handle, "wga_" + name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-            _lib = handle
+            with METRICS.stage("lib_load"):
+                lib_path = os.path.join(BUILD_DIR, LIB_NAME)
+                if _stale(lib_path):
+                    build(BUILD_DIR)
+                handle = ctypes.CDLL(lib_path)
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(handle, "wga_" + name)
+                    fn.argtypes = argtypes + [_P]
+                    fn.restype = _I
+                for name, (argtypes, restype) in HELPERS.items():
+                    fn = getattr(handle, "wga_" + name)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
+                _lib = handle
         return _lib
 
 

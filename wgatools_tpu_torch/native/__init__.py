@@ -165,6 +165,12 @@ def available() -> bool:
     return load() is not None
 
 
+def loaded() -> bool:
+    """Whether load() has run in this process (the library may still be
+    unavailable)."""
+    return _tried
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------

@@ -145,7 +145,9 @@ class _PinnedUpload:
         for a, off in zip(arrays, offsets):
             staged[off : off + a.nbytes] = np.ascontiguousarray(a).reshape(
                 -1).view(np.uint8)
-        dev = host[:n].to(self.device, non_blocking=True)
+        dev = torch.empty(n, dtype=torch.uint8, device=self.device)
+        with METRICS.gpu("h2d", self.device):
+            dev.copy_(host[:n], non_blocking=True)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
         self.slots[self.turn] = (host, event)
@@ -161,9 +163,12 @@ class _PinnedUpload:
 def stream_seq_pair_stats(items, device, batch_columns=DEFAULT_BATCH_COLUMNS):
     """Stream (t_bytes, q_bytes, negative, meta) items through the device;
     yields (meta, RecStat) in input order, with one batch in flight on
-    CUDA (see the module docstring)."""
+    CUDA (see the module docstring).  METRICS phases: `parse` while items
+    are pulled, `pack`, then the device stage, and `emit` while a batch's
+    results are yielded (the consumer's work on them included)."""
     cuda = device.type == "cuda"
     uploader = _PinnedUpload(device) if cuda else None
+    phase = METRICS.phases()
     pending = []  # (t, q, negative, meta)
     max_len = 0
     in_flight = None  # (list of (negative, meta), host rows, done event)
@@ -172,8 +177,15 @@ def stream_seq_pair_stats(items, device, batch_columns=DEFAULT_BATCH_COLUMNS):
         nonlocal max_len
         if not pending:
             return None
+        phase.to("pack")
         t, q, lens = pack_pairs([(it[0], it[1]) for it in pending])
         cw = pack_cat_nibbles(t, q)  # pack_pairs aligns L to 128
+        METRICS.count("slots", t.size)
+        METRICS.count("padded_slots", t.size - int(lens.sum()))
+        batch = [(it[2], it[3]) for it in pending]
+        pending.clear()
+        max_len = 0
+        phase.stop()
         # the upload and the launches (on CUDA the wait is in drain)
         with METRICS.stage("device_stats", cw.nbytes + lens.nbytes):
             if cuda:
@@ -181,7 +193,8 @@ def stream_seq_pair_stats(items, device, batch_columns=DEFAULT_BATCH_COLUMNS):
                 rows_d = classify_stat_cat(cw_d, len_d)
                 rows = torch.empty(rows_d.shape, dtype=torch.int32,
                                    pin_memory=True)
-                rows.copy_(rows_d, non_blocking=True)
+                with METRICS.gpu("d2h", device):
+                    rows.copy_(rows_d, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(torch.cuda.current_stream(device))
             else:
@@ -189,41 +202,48 @@ def stream_seq_pair_stats(items, device, batch_columns=DEFAULT_BATCH_COLUMNS):
                     torch.from_numpy(cw), torch.from_numpy(lens)
                 )
                 done = None
-        batch = [(it[2], it[3]) for it in pending]
-        pending.clear()
-        max_len = 0
         return batch, rows, done
 
     def drain(batch_rows):
         batch, rows, done = batch_rows
         if done is not None:
-            done.synchronize()  # the one-batch-deep fence
+            with METRICS.stage("device_wait"):
+                done.synchronize()  # the one-batch-deep fence
+            METRICS.settle()
+        phase.to("emit")
         for (neg, meta), row in zip(batch, rows.numpy()):
             yield meta, rec_stat_from_cigar(stats_row_to_cigar(row, neg))
 
-    for item in items:
-        n = len(item[0])
-        if n >= INT32_SAFE_COLUMNS:
-            # drain the pipeline first so that output order is kept
-            nf = dispatch()
-            if in_flight is not None:
-                yield from drain(in_flight)
-                in_flight = None
-            if nf is not None:
-                yield from drain(nf)
-            yield item[3], _host_pair_stat(item[0], item[1], item[2])
-            continue
-        new_max = max(max_len, n)
-        if pending and new_max * (len(pending) + 1) > batch_columns:
-            nf = dispatch()
-            if in_flight is not None:
-                yield from drain(in_flight)
-            in_flight = nf
-            new_max = n
-        max_len = new_max
-        pending.append(item)
-    nf = dispatch()
-    if in_flight is not None:
-        yield from drain(in_flight)
-    if nf is not None:
-        yield from drain(nf)
+    try:
+        phase.to("parse")
+        for item in items:
+            n = len(item[0])
+            if n >= INT32_SAFE_COLUMNS:
+                # drain the pipeline first so that output order is kept
+                nf = dispatch()
+                if in_flight is not None:
+                    yield from drain(in_flight)
+                    in_flight = None
+                if nf is not None:
+                    yield from drain(nf)
+                phase.to("emit")
+                yield item[3], _host_pair_stat(item[0], item[1], item[2])
+                phase.to("parse")
+                continue
+            new_max = max(max_len, n)
+            if pending and new_max * (len(pending) + 1) > batch_columns:
+                nf = dispatch()
+                if in_flight is not None:
+                    yield from drain(in_flight)
+                in_flight = nf
+                phase.to("parse")
+                new_max = n
+            max_len = new_max
+            pending.append(item)
+        nf = dispatch()
+        if in_flight is not None:
+            yield from drain(in_flight)
+        if nf is not None:
+            yield from drain(nf)
+    finally:
+        phase.stop()

@@ -264,7 +264,9 @@ def _paf2chain_device(pafreader, writer, device, batch_ops=1 << 20,
                       min_ops=None):
     """Batched pipeline: chain_scan tables on `device`, M-run boundary
     gathers + C++ formatting on the host.  Records without ops, or whose
-    lengths sum to 2^31 or more, take the host path in order."""
+    lengths sum to 2^31 or more, take the host path in order.  A batch runs
+    its phases one after another (METRICS: parse, pack, the device stage,
+    emit, write), so that each is one stretch of host time."""
     import torch
 
     from ..ops.liftover import chain_scan, int32_safe_record, pack_ops_batch
@@ -272,18 +274,19 @@ def _paf2chain_device(pafreader, writer, device, batch_ops=1 << 20,
     if min_ops is None:
         min_ops = DEVICE_MIN_OPS
 
+    phase = METRICS.phases()
     pending = []  # (record, ops, lens)
     total = 0
     next_id = 0
 
-    def emit_from_tables(record, ops, lens, ei, ed):
-        nonlocal next_id
+    def chain_block(record, chain_id, ops, lens, ei, ed):
         header = chain_header_from_record(record, *C.trims_from_ops(ops, lens))
-        header.chain_id = next_id
-        sizes, dqs, dts, final = _chain_block_from_scan(
-            record, ops, lens, ei, ed
-        )
-        write_chain_record(writer, header, (sizes, dqs, dts), final)
+        header.chain_id = chain_id
+        return header, _chain_block_from_scan(record, ops, lens, ei, ed)
+
+    def host_record(record, ops, lens):
+        nonlocal next_id
+        _write_chain_from_ops(writer, native, record, next_id, ops, lens)
         next_id += 1
 
     def flush():
@@ -292,41 +295,67 @@ def _paf2chain_device(pafreader, writer, device, batch_ops=1 << 20,
             return
         if total < min_ops:
             # too small to amortize device dispatch
+            phase.to("emit")
             for record, ops, lens in pending:
-                _write_chain_from_ops(writer, native, record, next_id, ops, lens)
-                next_id += 1
-            pending.clear()
-            total = 0
-            return
-        ops_b, lens_b = pack_ops_batch(
-            [p[1] for p in pending], [p[2] for p in pending]
-        )
-        with METRICS.stage("device_chain_scan", ops_b.nbytes * 5):
-            ei_b, ed_b = chain_scan(
-                torch.from_numpy(ops_b).to(device),
-                torch.from_numpy(lens_b).to(device),
+                host_record(record, ops, lens)
+        else:
+            phase.to("pack")
+            ops_b, lens_b = pack_ops_batch(
+                [p[1] for p in pending], [p[2] for p in pending]
             )
-            ei_b = ei_b.cpu().numpy()
-            ed_b = ed_b.cpu().numpy()
-        for k, (record, ops, lens) in enumerate(pending):
-            n = len(ops)
-            emit_from_tables(record, ops, lens, ei_b[k, :n], ed_b[k, :n])
+            METRICS.count("slots", ops_b.size)
+            METRICS.count("padded_slots", ops_b.size - total)
+            phase.stop()
+            with METRICS.stage("device_chain_scan", ops_b.nbytes * 5):
+                # allocated outside the gpu spans, which hold the copies
+                ops_d = torch.empty(ops_b.shape, dtype=torch.uint8,
+                                    device=device)
+                lens_d = torch.empty(lens_b.shape, dtype=torch.int32,
+                                     device=device)
+                with METRICS.gpu("h2d", device):
+                    ops_d.copy_(torch.from_numpy(ops_b))
+                    lens_d.copy_(torch.from_numpy(lens_b))
+                ei_d, ed_d = chain_scan(ops_d, lens_d)
+                ei_h = torch.empty(ei_d.shape, dtype=ei_d.dtype)
+                ed_h = torch.empty(ed_d.shape, dtype=ed_d.dtype)
+                with METRICS.gpu("d2h", device):
+                    ei_h.copy_(ei_d)
+                    ed_h.copy_(ed_d)
+                ei_b, ed_b = ei_h.numpy(), ed_h.numpy()
+            METRICS.settle()
+            phase.to("emit")
+            blocks = [
+                chain_block(record, next_id + k, ops, lens, ei_b[k, :len(ops)],
+                            ed_b[k, :len(ops)])
+                for k, (record, ops, lens) in enumerate(pending)
+            ]
+            phase.to("write")
+            for header, (sizes, dqs, dts, final) in blocks:
+                write_chain_record(writer, header, (sizes, dqs, dts), final)
+            next_id += len(pending)
         pending.clear()
         total = 0
+        phase.to("parse")
 
-    for record in pafreader.records():
-        ops, lens = record.get_cigar_ops()
-        if not int32_safe_record(lens):
-            flush()  # keeps chain ids in order
-            _write_chain_from_ops(writer, native, record, next_id, ops, lens)
-            next_id += 1
-            continue
-        pending.append((record, ops, lens))
-        total += len(ops)
-        if total >= batch_ops:
-            flush()
-    flush()
-    writer.flush()
+    try:
+        phase.to("parse")
+        for record in pafreader.records():
+            ops, lens = record.get_cigar_ops()
+            if not int32_safe_record(lens):
+                flush()  # keeps chain ids in order
+                phase.to("emit")
+                host_record(record, ops, lens)
+                phase.to("parse")
+                continue
+            pending.append((record, ops, lens))
+            total += len(ops)
+            if total >= batch_ops:
+                flush()
+        flush()
+        phase.to("write")
+        writer.flush()
+    finally:
+        phase.stop()
 
 
 def _emit_chain_block(writer, record, chain_id, blk):

@@ -18,6 +18,7 @@ import numpy as np
 from ..core.cigar import RecStat, cigar_from_seqs, rec_stat_from_cigar, seq_bytes
 from ..core.device import DEFAULT_BATCH_COLUMNS, DEVICE_MIN_COLUMNS
 from ..core.fmt import fmt_f32
+from ..core.metrics import METRICS
 from ..core.natsort import rank_by_natural
 from .validate import stream_batch_stats
 
@@ -218,8 +219,16 @@ def merge_final(pair_stats) -> list:
     return out
 
 
+def final_stats(pair_stats, each: bool) -> list:
+    return split_final(pair_stats) if each else merge_final(pair_stats)
+
+
 def write_style_result(pair_stats, writer, each: bool):
-    final = split_final(pair_stats) if each else merge_final(pair_stats)
+    write_final(final_stats(pair_stats, each), writer)
+
+
+def write_final(final, writer):
+    """The table: rows natural-sorted by ref_name under the header."""
     rank = rank_by_natural(s.ref_name for s in final)
     final.sort(key=lambda s: rank[s.ref_name])
     writer.write(("\t".join(STAT_COLUMNS) + "\n").encode("ascii"))
@@ -261,40 +270,37 @@ def stat_maf(reader, writer, device, each=False, query_name=None,
             )
             yield (rec.target_seq, rec.query_seq, rec.is_negative, meta)
 
+    # METRICS: the head's parse here, the stream's phases in
+    # stream_seq_pair_stats (PairStat is built inside its emit phase)
     stream = items()
     head = []
     head_cols = 0
     if not force_device:
-        for item in stream:
-            head.append(item)
-            head_cols += len(item[0])
-            if head_cols >= DEVICE_MIN_COLUMNS:
-                break
+        with METRICS.stage("parse"):
+            for item in stream:
+                head.append(item)
+                head_cols += len(item[0])
+                if head_cols >= DEVICE_MIN_COLUMNS:
+                    break
     if not force_device and head_cols < DEVICE_MIN_COLUMNS:
-        results = (
-            (m, rec_stat_from_cigar(
-                cigar_from_seqs(seq_bytes(t), seq_bytes(q), neg)))
-            for t, q, neg, m in head
-        )
+        with METRICS.stage("emit"):
+            pair_stats = [
+                PairStat(*m, rec_stat=rec_stat_from_cigar(
+                    cigar_from_seqs(seq_bytes(t), seq_bytes(q), neg)))
+                for t, q, neg, m in head
+            ]
     else:
         from ..ops.batch import stream_seq_pair_stats
 
-        results = stream_seq_pair_stats(
-            itertools.chain(head, stream), device, batch_columns
-        )
-    pair_stats = [
-        PairStat(
-            ref_name=m[0],
-            ref_size=m[1],
-            query_name=m[2],
-            query_size=m[3],
-            ref_start=m[4],
-            query_start=m[5],
-            rec_stat=rs,
-        )
-        for m, rs in results
-    ]
-    write_style_result(pair_stats, writer, each)
+        pair_stats = [
+            PairStat(*m, rec_stat=rs)
+            for m, rs in stream_seq_pair_stats(
+                itertools.chain(head, stream), device, batch_columns)
+        ]
+    with METRICS.stage("emit"):
+        final = final_stats(pair_stats, each)
+    with METRICS.stage("write"):
+        write_final(final, writer)
 
 
 def stat_paf(reader, writer, device, each=False):
