@@ -13,10 +13,11 @@ otherwise:
   library's and the kernel library's first load, the latter inside the
   device stage of the first launch); none of them on the host route.
 - host layers of paf2chain and stat: `parse` (records read, CIGAR op
-  arrays or block sequences taken out), `pack` (padded batches, category
-  planes), `emit` (per-record and per-block work on the device's results,
-  and the aggregation), `write` (formatting, the writer's writes and
-  flush).  Within a call they and the `device_*` stages are disjoint.
+  arrays or block sequences taken out), `pack` (padded batches; stat's
+  category planes, packed into the pinned upload slot), `emit`
+  (per-record and per-block work on the device's results, and the
+  aggregation), `write` (formatting, the writer's writes and flush).
+  Within a call they and the `device_*` stages are disjoint.
 - `device_*`: the device stages, upload, launches and fetch of one batch
   on the host's clock (`device_wait`: stat's fence on a batch in flight).
 - `gpu_*`: on the device's clock, the time between two CUDA events on the
@@ -26,7 +27,9 @@ otherwise:
 
 Counters: `slots` and `padded_slots`, the op slots (kernel B) or columns
 (kernel A) of every batch a tool uploads, and those of them that are
-padding.
+padding; `direct_pack_slots`, the columns of stat's batches whose category
+plane was packed straight from the blocks' bytes into the buffer that goes
+up (ops/batch.py; the padding in them is never written).
 
 When a torch.profiler session is on, each stage or phase also opens a
 `wga.<name>` user annotation (record_function), so that the program's spans

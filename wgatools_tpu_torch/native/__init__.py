@@ -83,6 +83,8 @@ def load():
         lib.pack_nibbles.restype = ctypes.c_int32
         lib.pack_cats.argtypes = [_ptr, _ptr, _i64, _ptr, _ptr]
         lib.pack_cats.restype = None
+        lib.pack_cat_rows.argtypes = [_ptr, _ptr, _ptr, _i64, _i64, _ptr, _ptr]
+        lib.pack_cat_rows.restype = None
         lib.format_bed_lines.argtypes = [
             _charp, _i64, _i64, _ptr, _i64, _ptr, _i64,
         ]
@@ -762,6 +764,29 @@ def pack_cats(t: np.ndarray, q: np.ndarray, lut64k: np.ndarray):
         out.ctypes.data,
     )
     return out.view("<i4")
+
+
+def pack_cat_rows(ts, qs, lens: np.ndarray, row_bytes: int,
+                  lut64k: np.ndarray, dst: np.ndarray) -> bool:
+    """CATEGORY-plane packing straight from each row's bytes: row k's
+    lens[k] columns of the bytes objects ts[k] and qs[k] (read in place,
+    without a copy) become lens[k] nibbles at byte k * row_bytes of dst,
+    through the 64K LUT as in pack_cats.  lens: int32, at most
+    min(len(ts[k]), len(qs[k])) each; dst: contiguous uint8 of at least
+    len(lens) * row_bytes bytes, written nowhere past a row's last byte.
+    False when the library is unavailable."""
+    lib = load()
+    if lib is None:
+        return False
+    B = len(lens)
+    assert len(ts) == len(qs) == B and lens.dtype == np.int32
+    assert lens.flags.c_contiguous and 2 * row_bytes >= int(lens.max(initial=0))
+    assert dst.dtype == np.uint8 and dst.flags.c_contiguous
+    assert dst.nbytes >= B * row_bytes
+    lib.pack_cat_rows((ctypes.c_char_p * B)(*ts), (ctypes.c_char_p * B)(*qs),
+                      lens.ctypes.data, B, row_bytes, lut64k.ctypes.data,
+                      dst.ctypes.data)
+    return True
 
 
 def pack_nibbles(arr: np.ndarray, lut256: np.ndarray):

@@ -1032,6 +1032,30 @@ void pack_cats(const uint8_t* t, const uint8_t* q, int64_t n,
     }
 }
 
+// The same category nibbles, packed from each row's own bytes instead of
+// padded byte planes (ops/batch.py stream_seq_pair_stats): row k's lens[k]
+// columns, from ts[k] and qs[k], go to dst + k * row_bytes, two columns a
+// byte.  A row's odd last column fills the low nibble of its last byte.
+// Nothing past a row's last byte is written: the kernel and its plain
+// version mask every column at or past lens[k].
+void pack_cat_rows(const uint8_t* const* ts, const uint8_t* const* qs,
+                   const int32_t* lens, int64_t B, int64_t row_bytes,
+                   const uint8_t* lut64k, uint8_t* dst) {
+    for (int64_t k = 0; k < B; ++k) {
+        const uint8_t* t = ts[k];
+        const uint8_t* q = qs[k];
+        const int64_t n = lens[k];
+        uint8_t* d = dst + k * row_bytes;
+        int64_t i = 0;
+        for (; i + 1 < n; i += 2) {
+            uint8_t a = lut64k[((uint32_t)t[i] << 8) | q[i]];
+            uint8_t b = lut64k[((uint32_t)t[i + 1] << 8) | q[i + 1]];
+            d[i >> 1] = (uint8_t)(a | (b << 4));
+        }
+        if (i < n) d[i >> 1] = lut64k[((uint32_t)t[i] << 8) | q[i]];
+    }
+}
+
 // bulk-format indel (INS/DEL) VCF rows in event order, byte-identical to
 // tools/caller.py write_record() on the tuples _emit_variant_rows_vec
 // built per event (reference row shapes: caller.rs:500-561):

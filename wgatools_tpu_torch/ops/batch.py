@@ -1,9 +1,13 @@
 """Batched per-record statistics on the device.
 
-Streams MAF records into padded [B, L] column batches, packs each batch
-into the category plane on the host, reduces it with classify_stat_cat on
-the device, and turns the counter rows back into RecStats with host-side
-strand routing.  Records of 2^31 columns or more would wrap the int32
+Streams MAF records into [B, L] column batches, packs each batch into the
+category plane on the host, reduces it with classify_stat_cat on the
+device, and turns the counter rows back into RecStats with host-side
+strand routing.  With the native library the plane is packed from each
+record's own bytes straight into the buffer that goes up (on CUDA the
+pinned slot), and nothing past a row's length is written: the kernel and
+its plain version mask those columns.  Without it, padded byte planes are
+packed and staged.  Records of 2^31 columns or more would wrap the int32
 counters and take the int64 host engine instead, in order.
 
 On CUDA the pipeline keeps one batch in flight: the host packs batch i+1
@@ -17,10 +21,12 @@ only after the event of its previous upload has completed.
 import numpy as np
 import torch
 
+from .. import native
 from ..core.cigar import EQ, D, I, X, Cigar, ext_runs, rec_stat_from_cigar
 from ..core.device import DEFAULT_BATCH_COLUMNS
 from ..core.metrics import METRICS
 from .classify import (
+    _CAT_LUT64K,
     STAT_DEL_EVENT,
     STAT_DEL_SIZE,
     STAT_INS_EVENT,
@@ -122,29 +128,31 @@ class _PinnedUpload:
     """Two pinned host slots for non_blocking uploads on the current
     stream.  A slot holds one batch's arrays (a category plane and its
     lengths, or two byte planes) back to back, each at a 16-byte aligned
-    offset, so a batch goes up in one copy."""
+    offset, so a batch goes up in one copy.  `slot` hands out the next
+    slot's host bytes to be filled in place, `send` uploads them; `upload`
+    does both for numpy arrays."""
 
     def __init__(self, device):
         self.device = device
         self.slots = [(None, None), (None, None)]  # (pinned buffer, event)
         self.turn = 0
 
-    def upload(self, *arrays):
-        """numpy arrays -> tensors of the same dtypes and shapes on the
-        device, without waiting for the copy."""
+    def slot(self, n):
+        """The next slot's first n bytes as a writable uint8 numpy array,
+        once that slot's previous upload has left."""
         host, event = self.slots[self.turn]
         if event is not None:
-            event.synchronize()  # its previous upload must have left
-        offsets, n = [], 0
-        for a in arrays:
-            offsets.append(n)
-            n += -(-a.nbytes // 16) * 16
+            event.synchronize()
         if host is None or host.numel() < n:
             host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
-        staged = host.numpy()
-        for a, off in zip(arrays, offsets):
-            staged[off : off + a.nbytes] = np.ascontiguousarray(a).reshape(
-                -1).view(np.uint8)
+        self.slots[self.turn] = (host, None)
+        return host.numpy()[:n]
+
+    def send(self, n):
+        """Upload the first n bytes of the slot `slot` handed out, without
+        waiting for the copy; returns them as a uint8 tensor on the device
+        and turns to the other slot."""
+        host = self.slots[self.turn][0]
         dev = torch.empty(n, dtype=torch.uint8, device=self.device)
         with METRICS.gpu("h2d", self.device):
             dev.copy_(host[:n], non_blocking=True)
@@ -152,12 +160,30 @@ class _PinnedUpload:
         event.record(torch.cuda.current_stream(self.device))
         self.slots[self.turn] = (host, event)
         self.turn ^= 1
+        return dev
+
+    def upload(self, *arrays):
+        """numpy arrays -> tensors of the same dtypes and shapes on the
+        device, without waiting for the copy."""
+        offsets, n = [], 0
+        for a in arrays:
+            offsets.append(n)
+            n += _aligned(a.nbytes)
+        staged = self.slot(n)
+        for a, off in zip(arrays, offsets):
+            staged[off : off + a.nbytes] = np.ascontiguousarray(a).reshape(
+                -1).view(np.uint8)
+        dev = self.send(n)
         return tuple(
             dev[off : off + a.nbytes]
             .view(torch.from_numpy(np.empty(0, a.dtype)).dtype)
             .view(a.shape)
             for a, off in zip(arrays, offsets)
         )
+
+
+def _aligned(nbytes):
+    return -(-nbytes // 16) * 16
 
 
 def stream_seq_pair_stats(items, device, batch_columns=DEFAULT_BATCH_COLUMNS):
@@ -178,30 +204,53 @@ def stream_seq_pair_stats(items, device, batch_columns=DEFAULT_BATCH_COLUMNS):
         if not pending:
             return None
         phase.to("pack")
-        t, q, lens = pack_pairs([(it[0], it[1]) for it in pending])
-        cw = pack_cat_nibbles(t, q)  # pack_pairs aligns L to 128
-        METRICS.count("slots", t.size)
-        METRICS.count("padded_slots", t.size - int(lens.sum()))
+        B = len(pending)
+        if native.available():
+            # the plane is packed from the rows' own bytes straight into the
+            # slot that goes up, and nothing is written past a row's length
+            lens = np.fromiter((min(len(it[0]), len(it[1])) for it in pending),
+                               np.int32, B)
+            L = max(-(-int(lens.max()) // 128) * 128, 128)  # as pack_pairs
+            plane = B * L // 2
+            off = _aligned(plane)
+            n = off + lens.nbytes
+            host = uploader.slot(n) if cuda else np.empty(n, np.uint8)
+            native.pack_cat_rows([it[0] for it in pending],
+                                 [it[1] for it in pending], lens, L // 2,
+                                 _CAT_LUT64K, host)
+            host[off:] = lens.view(np.uint8)
+            METRICS.count("direct_pack_slots", B * L)
+            cw = None
+        else:
+            t, q, lens = pack_pairs([(it[0], it[1]) for it in pending])
+            cw = pack_cat_nibbles(t, q)  # pack_pairs aligns L to 128
+            L = t.shape[1]
+            plane = cw.nbytes
+        METRICS.count("slots", B * L)
+        METRICS.count("padded_slots", B * L - int(lens.sum()))
         batch = [(it[2], it[3]) for it in pending]
         pending.clear()
         max_len = 0
         phase.stop()
         # the upload and the launches (on CUDA the wait is in drain)
-        with METRICS.stage("device_stats", cw.nbytes + lens.nbytes):
-            if cuda:
+        with METRICS.stage("device_stats", plane + lens.nbytes):
+            if cw is None:
+                raw = uploader.send(n) if cuda else torch.from_numpy(host)
+                cw_d = raw[:plane].view(torch.int32).view(B, L // 8)
+                len_d = raw[off:].view(torch.int32)
+            elif cuda:
                 cw_d, len_d = uploader.upload(cw, lens)
-                rows_d = classify_stat_cat(cw_d, len_d)
+            else:
+                cw_d, len_d = torch.from_numpy(cw), torch.from_numpy(lens)
+            rows_d = classify_stat_cat(cw_d, len_d)
+            rows, done = rows_d, None
+            if cuda:
                 rows = torch.empty(rows_d.shape, dtype=torch.int32,
                                    pin_memory=True)
                 with METRICS.gpu("d2h", device):
                     rows.copy_(rows_d, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(torch.cuda.current_stream(device))
-            else:
-                rows = classify_stat_cat(
-                    torch.from_numpy(cw), torch.from_numpy(lens)
-                )
-                done = None
         return batch, rows, done
 
     def drain(batch_rows):
