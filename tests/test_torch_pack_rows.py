@@ -1,5 +1,6 @@
-"""stat's category plane packed straight from each block's bytes
-(native.pack_cat_rows, ops.batch.stream_seq_pair_stats): the same nibbles
+"""stat's category plane packed straight from each block's bytes, or from
+where its rows lie in one buffer (native.pack_cat_rows and
+pack_cat_rows_at, ops.batch.stream_seq_pair_stats): the same nibbles
 as the padded byte planes' route on every valid column, nothing written
 past a row's last byte, nothing past a length read by kernel A's plain
 version, and the same RecStats with and without the native library.
@@ -165,6 +166,71 @@ def test_stream_native_equals_fallback(seed, int32_safe, monkeypatch):
     assert "direct_pack_slots" not in fallback_counts
     for key in ("slots", "padded_slots"):
         assert direct_counts[key] == fallback_counts[key]
+
+
+def _one_buffer(rng, pairs):
+    """Every row of `pairs` in one uint8 buffer, t and q in turn, each at
+    an offset of 0-7 bytes past the previous row's end (odd ones
+    included); returns (buffer, t offsets, q offsets)."""
+    parts, t_off, q_off, pos = [], [], [], 0
+    for t, q in pairs:
+        for row, offs in ((t, t_off), (q, q_off)):
+            gap = int(rng.integers(0, 8))
+            parts.append(bytes(rng.integers(0, 256, gap, dtype=np.uint8)))
+            offs.append(pos + gap)
+            parts.append(row)
+            pos += gap + len(row)
+    buf = np.frombuffer(b"".join(parts), np.uint8)
+    return buf, np.array(t_off, np.int64), np.array(q_off, np.int64)
+
+
+@pytest.mark.parametrize("extra", [0, 1, 64], ids=["row_bytes", "plus_1",
+                                                   "plus_64"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_rows_at_offsets_equal_bytes_rows(case, extra):
+    """pack_cat_rows_at on rows at unaligned offsets of one buffer writes
+    the same bytes as pack_cat_rows on the rows as bytes objects, with
+    odd, 0 and 1 lengths, row_bytes at or past a row's length, and nothing
+    past a row's last byte."""
+    rng = np.random.default_rng(13)
+    pairs = CASES[case](rng)
+    buf, t_off, q_off = _one_buffer(rng, pairs)
+    lens = np.array([min(len(t), len(q)) for t, q in pairs], np.int32)
+    row_bytes = (int(lens.max()) + 1) // 2 + extra
+    want = np.full((len(pairs), row_bytes), GARBAGE, np.uint8)
+    got = want.copy()
+    assert native.pack_cat_rows([p[0] for p in pairs], [p[1] for p in pairs],
+                                lens, row_bytes, _CAT_LUT64K, want)
+    assert native.pack_cat_rows_at(buf, t_off, q_off, lens, row_bytes,
+                                   _CAT_LUT64K, got)
+    assert np.array_equal(got, want)
+    for k, n in enumerate(lens.tolist()):
+        assert (got[k, (n + 1) // 2 :] == GARBAGE).all(), k
+
+
+@pytest.mark.parametrize("library", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("int32_safe", [None, 3000],
+                         ids=["device_only", "int32_route"])
+def test_stream_rows_at_offsets_equal_bytes(library, int32_safe, monkeypatch):
+    """stream_seq_pair_stats with its rows given as ranges of one buffer
+    gives the RecStats of the same rows as bytes: packed in place with the
+    library, viewed for pack_pairs without it and for the int64 host
+    engine past a lowered INT32_SAFE_COLUMNS."""
+    items = _stream_items(4, long_at=(5, 6, 15))
+    buf, t_off, q_off = _one_buffer(np.random.default_rng(17),
+                                    [(t, q) for t, q, _, _ in items])
+    ranged = [(range(to, to + len(t)), range(qo, qo + len(q)), neg, meta)
+              for (t, q, neg, meta), to, qo in zip(items, t_off.tolist(),
+                                                   q_off.tolist())]
+    if int32_safe is not None:
+        monkeypatch.setattr(batch, "INT32_SAFE_COLUMNS", int32_safe)
+    if not library:
+        monkeypatch.setattr(native, "load", lambda: None)
+    monkeypatch.setattr(METRICS, "counts", {})
+    got = list(batch.stream_seq_pair_stats(iter(ranged), CPU, 6000, buf))
+    assert [m for m, _ in got] == [it[3] for it in items]
+    assert [rs for _, rs in got] == _host_stats(items)
+    assert ("direct_pack_slots" in METRICS.counts) == library
 
 
 def test_slot_send_on_the_card_equals_upload(monkeypatch):

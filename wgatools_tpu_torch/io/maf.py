@@ -13,6 +13,10 @@ Reader semantics mirror the reference exactly:
   * s-lines must have exactly 7 whitespace-separated fields (maf.rs:138-211).
 """
 
+import io
+import mmap
+import os
+import stat
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -23,6 +27,7 @@ from ..core.cigar import (
     count_non_gap,
     seq_bytes,
 )
+from ..core.metrics import METRICS
 from ..core.natsort import natural_cmp
 from ..core.strand import Strand
 from ..errors import (
@@ -364,6 +369,71 @@ class MafReader:
                 # the separating line is consumed, matching the reference
                 break
         return record
+
+
+# blocks a scanner call: bounds its tables, and the first batch waits for
+# one span only
+SCAN_BLOCKS = 1024
+
+
+def map_reader(reader):
+    """The reader's file mapped read-only, when the reader is a plain
+    `open(path, "rb")` of a regular file (an uncompressed path through
+    compression.open_input) standing where MafReader has read to; else
+    None (stdin, a decompressing stream, an empty file)."""
+    inner = reader.inner
+    if type(inner) is not io.BufferedReader:
+        return None
+    raw = inner.raw
+    if type(raw) is not io.FileIO or isinstance(raw.name, int):
+        return None
+    st = os.fstat(raw.fileno())
+    if not stat.S_ISREG(st.st_mode) or st.st_size == 0:
+        return None
+    if inner.tell() != reader.offset():
+        return None
+    return mmap.mmap(raw.fileno(), 0, access=mmap.ACCESS_READ)
+
+
+def mapped_records(mm, start):
+    """The records of a mapped MAF (map_reader's mapping) from byte `start`,
+    in MafReader.records()'s order, each as a list of its s-lines' (name,
+    start, align_size, strand, size, seq) with seq the range of the
+    sequence's offsets in the mapping.  The native scanner tokenizes spans
+    of SCAN_BLOCKS blocks; the lines of a block it refuses go through
+    parse_sline, which raises as MafReader does.  Counters:
+    `native_scan_blocks`, `scan_fallback_blocks`."""
+    from .. import native
+
+    base = np.frombuffer(mm, np.uint8)
+    while start < base.size:
+        blocks, lines, start = native.scan_maf_blocks(base, start, SCAN_BLOCKS)
+        METRICS.count("native_scan_blocks", int(blocks[:, 2].sum()))
+        rows = lines[:, 2:].tolist()
+        names = {}  # name offset -> name, within the span
+        for first, n, tokenized in blocks.tolist():
+            if tokenized:
+                yield [(names.get(r[0]) or _name(names, mm, r[0], r[1]), r[2],
+                        r[3], Strand.NEGATIVE if r[4] else Strand.POSITIVE,
+                        r[5], range(r[6], r[7]))
+                       for r in rows[first : first + n]]
+                continue
+            METRICS.count("scan_fallback_blocks", 1)
+            slines = []
+            for lo, hi in lines[first : first + n, :2].tolist():
+                line = mm[lo:hi]
+                s = parse_sline(line)
+                # seq is the line's last field, right-stripped
+                end = lo + len(line.rstrip())
+                slines.append((s.name, s.start, s.align_size, s.strand,
+                               s.size, range(end - len(s.seq), end)))
+            yield slines
+
+
+def _name(names, mm, offset, n):
+    """The name at `offset`, decoded and kept in `names`."""
+    name = names[offset] = mm[offset : offset + n].decode("ascii")
+    return name
 
 
 class MafWriter:

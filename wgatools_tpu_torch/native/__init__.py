@@ -85,6 +85,14 @@ def load():
         lib.pack_cats.restype = None
         lib.pack_cat_rows.argtypes = [_ptr, _ptr, _ptr, _i64, _i64, _ptr, _ptr]
         lib.pack_cat_rows.restype = None
+        lib.pack_cat_rows_at.argtypes = [
+            _ptr, _ptr, _ptr, _ptr, _i64, _i64, _ptr, _ptr,
+        ]
+        lib.pack_cat_rows_at.restype = None
+        lib.scan_maf_blocks.argtypes = [
+            _ptr, _i64, _i64, _i64, _i64, _ptr, _ptr, _ptr,
+        ]
+        lib.scan_maf_blocks.restype = _i64
         lib.format_bed_lines.argtypes = [
             _charp, _i64, _i64, _ptr, _i64, _ptr, _i64,
         ]
@@ -787,6 +795,65 @@ def pack_cat_rows(ts, qs, lens: np.ndarray, row_bytes: int,
                       lens.ctypes.data, B, row_bytes, lut64k.ctypes.data,
                       dst.ctypes.data)
     return True
+
+
+def pack_cat_rows_at(base: np.ndarray, t_off: np.ndarray, q_off: np.ndarray,
+                     lens: np.ndarray, row_bytes: int, lut64k: np.ndarray,
+                     dst: np.ndarray) -> bool:
+    """pack_cat_rows with row k's columns read at base[t_off[k]:] and
+    base[q_off[k]:], offsets into one contiguous uint8 buffer (a mapped
+    file), instead of from bytes objects.  t_off, q_off: int64, with
+    lens[k] columns inside base from each.  False when the library is
+    unavailable."""
+    lib = load()
+    if lib is None:
+        return False
+    B = len(lens)
+    assert base.dtype == np.uint8 and base.flags.c_contiguous
+    assert t_off.dtype == q_off.dtype == np.int64 and lens.dtype == np.int32
+    assert len(t_off) == len(q_off) == B
+    assert t_off.flags.c_contiguous and q_off.flags.c_contiguous
+    assert lens.flags.c_contiguous and 2 * row_bytes >= int(lens.max(initial=0))
+    assert dst.dtype == np.uint8 and dst.flags.c_contiguous
+    assert dst.nbytes >= B * row_bytes
+    if B:
+        assert min(int(t_off.min()), int(q_off.min())) >= 0
+        assert int(np.maximum(t_off + lens, q_off + lens).max()) <= base.size
+    lib.pack_cat_rows_at(base.ctypes.data, t_off.ctypes.data,
+                         q_off.ctypes.data, lens.ctypes.data, B, row_bytes,
+                         lut64k.ctypes.data, dst.ctypes.data)
+    return True
+
+
+def scan_maf_blocks(base: np.ndarray, start: int, cap_blocks: int):
+    """One span of a MAF's s-line blocks from byte `start` of base (a
+    contiguous uint8 buffer, the mapped file; `start` at a line start
+    outside a block): at most cap_blocks blocks, tokenized in MafReader's
+    grammar where the scanner understands every line of a block (see
+    scan_maf_blocks in wganative.cpp).  Returns (blocks int64 [n, 3]:
+    first line, line count, tokenized; lines int64 [m, 10]: line start,
+    line end, name offset and length, start, align_size, strand (1 for
+    '-'), size, sequence start and end; the offset to resume from), or
+    None when the library is unavailable.  Equal names of consecutive
+    tokenized blocks share a name offset."""
+    lib = load()
+    if lib is None:
+        return None
+    assert base.dtype == np.uint8 and base.flags.c_contiguous
+    assert 0 <= start <= base.size and cap_blocks > 0
+    cap_lines = 4 * cap_blocks
+    resume = np.zeros(1, np.int64)
+    while True:
+        blocks = np.empty((cap_blocks, 3), np.int64)
+        lines = np.empty((cap_lines, 10), np.int64)
+        n = lib.scan_maf_blocks(base.ctypes.data, start, base.size,
+                                cap_blocks, cap_lines, blocks.ctypes.data,
+                                lines.ctypes.data, resume.ctypes.data)
+        if n >= 0:
+            break
+        cap_lines *= 2  # one block of more lines than the table holds
+    m = int(blocks[n - 1, :2].sum()) if n else 0
+    return blocks[:n], lines[:m], int(resume[0])
 
 
 def pack_nibbles(arr: np.ndarray, lut256: np.ndarray):

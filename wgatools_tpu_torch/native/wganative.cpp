@@ -1038,22 +1038,169 @@ void pack_cats(const uint8_t* t, const uint8_t* q, int64_t n,
 // byte.  A row's odd last column fills the low nibble of its last byte.
 // Nothing past a row's last byte is written: the kernel and its plain
 // version mask every column at or past lens[k].
+static inline void pack_cat_row(const uint8_t* t, const uint8_t* q,
+                                int64_t n, const uint8_t* lut64k,
+                                uint8_t* d) {
+    int64_t i = 0;
+    for (; i + 1 < n; i += 2) {
+        uint8_t a = lut64k[((uint32_t)t[i] << 8) | q[i]];
+        uint8_t b = lut64k[((uint32_t)t[i + 1] << 8) | q[i + 1]];
+        d[i >> 1] = (uint8_t)(a | (b << 4));
+    }
+    if (i < n) d[i >> 1] = lut64k[((uint32_t)t[i] << 8) | q[i]];
+}
+
 void pack_cat_rows(const uint8_t* const* ts, const uint8_t* const* qs,
                    const int32_t* lens, int64_t B, int64_t row_bytes,
                    const uint8_t* lut64k, uint8_t* dst) {
-    for (int64_t k = 0; k < B; ++k) {
-        const uint8_t* t = ts[k];
-        const uint8_t* q = qs[k];
-        const int64_t n = lens[k];
-        uint8_t* d = dst + k * row_bytes;
-        int64_t i = 0;
-        for (; i + 1 < n; i += 2) {
-            uint8_t a = lut64k[((uint32_t)t[i] << 8) | q[i]];
-            uint8_t b = lut64k[((uint32_t)t[i + 1] << 8) | q[i + 1]];
-            d[i >> 1] = (uint8_t)(a | (b << 4));
-        }
-        if (i < n) d[i >> 1] = lut64k[((uint32_t)t[i] << 8) | q[i]];
+    for (int64_t k = 0; k < B; ++k)
+        pack_cat_row(ts[k], qs[k], lens[k], lut64k, dst + k * row_bytes);
+}
+
+// pack_cat_rows with the rows given as offsets into one buffer (stat's
+// mapped MAF): row k reads base + t_off[k] and base + q_off[k].
+void pack_cat_rows_at(const uint8_t* base, const int64_t* t_off,
+                      const int64_t* q_off, const int32_t* lens, int64_t B,
+                      int64_t row_bytes, const uint8_t* lut64k,
+                      uint8_t* dst) {
+    for (int64_t k = 0; k < B; ++k)
+        pack_cat_row(base + t_off[k], base + q_off[k], lens[k], lut64k,
+                     dst + k * row_bytes);
+}
+
+// bytes.split(None)'s whitespace but '\n', which ends the line instead
+static inline bool maf_ws(uint8_t c) {
+    return c == ' ' || c == '\t' || c == '\r' || c == 0x0b || c == 0x0c;
+}
+
+// A run of whitespace at i and past it; true when a field follows.
+static inline bool maf_sep(const uint8_t* b, int64_t& i, int64_t end) {
+    if (i >= end || !maf_ws(b[i])) return false;
+    while (i < end && maf_ws(b[i])) ++i;
+    return i < end;
+}
+
+// io/maf.py _parse_u64 at i (i < end): an optional '+', then ASCII digits
+// up to whitespace or end, at most 0x7FFFFFFFFFFFFFFF.
+static inline bool maf_u63(const uint8_t* b, int64_t& i, int64_t end,
+                           int64_t* v) {
+    if (b[i] == '+') ++i;
+    const int64_t s = i;
+    uint64_t x = 0;
+    for (; i < end && b[i] >= '0' && b[i] <= '9'; ++i) {
+        uint64_t d = b[i] - '0';
+        if (x > (0x7FFFFFFFFFFFFFFFull - d) / 10) return false;
+        x = x * 10 + d;
     }
+    *v = (int64_t)x;
+    return i > s && (i == end || maf_ws(b[i]));
+}
+
+// The first byte at or past k outside 0x21-0x7e, or end: 64 bytes a step
+// with a branch-free test, so that a sequence is read once.
+static inline int64_t maf_seq_end(const uint8_t* b, int64_t k, int64_t end) {
+    for (; k + 64 <= end; k += 64) {
+        uint8_t out = 0;
+        for (int j = 0; j < 64; ++j) out |= (uint8_t)(b[k + j] - 0x21) > 0x5d;
+        if (out) break;
+    }
+    while (k < end && (uint8_t)(b[k] - 0x21) <= 0x5d) ++k;
+    return k;
+}
+
+// The fields of the s-line at p (base[p] == 's') into row[2..9]; true when
+// the line is understood fully, with i then at its end (past its '\n').
+// Every test stops at a '\n', so that on false i lies inside the line.
+static bool maf_fields(const uint8_t* b, int64_t p, int64_t& i, int64_t end,
+                       int64_t* row) {
+    i = p + 1;  // past the 's'
+    if (!maf_sep(b, i, end)) return false;
+    const int64_t name = i;
+    for (; i < end && !maf_ws(b[i]); ++i)
+        if (b[i] < 0x21 || b[i] > 0x7e) return false;
+    row[2] = name;
+    row[3] = i - name;
+    if (!maf_sep(b, i, end) || !maf_u63(b, i, end, &row[4])) return false;
+    if (!maf_sep(b, i, end) || !maf_u63(b, i, end, &row[5])) return false;
+    if (!maf_sep(b, i, end) || (b[i] != '+' && b[i] != '-')) return false;
+    row[6] = b[i++] == '-';
+    if (i < end && !maf_ws(b[i])) return false;
+    if (!maf_sep(b, i, end) || !maf_u63(b, i, end, &row[7])) return false;
+    if (!maf_sep(b, i, end)) return false;
+    const int64_t seq = i;
+    i = maf_seq_end(b, i, end);
+    row[8] = seq;
+    row[9] = i;
+    if (i == seq) return false;
+    while (i < end && maf_ws(b[i])) ++i;  // trailing whitespace
+    if (i == end) return true;
+    return b[i++] == '\n';
+}
+
+// MAF s-line blocks of base[start, end) in io/maf.py MafReader's grammar:
+// a block is a maximal run of lines (split at '\n') whose first byte is
+// 's'; any other line ends it and is consumed.  A line is tokenized only
+// when it is fully understood: "s", then 6 fields split on runs of
+// bytes.split(None)'s whitespace, the name of bytes 0x21-0x7e, start,
+// align_size and size an optional '+' and ASCII digits of at most
+// 0x7FFFFFFFFFFFFFFF, the strand '+' or '-', the sequence of bytes
+// 0x21-0x7e up to trailing whitespace and the line's end.  Any other
+// s-line is refused, and with it its block: the caller parses the lines
+// of a refused block with parse_sline, so every input keeps MafReader's
+// records and errors.  lines[k * 10 ...]: line start, line end (past its
+// '\n'), name offset, name length, start, align_size, strand (1 for '-'),
+// size, sequence start, sequence end (the fields only when its block is
+// tokenized); a name equal to that of the line at the same place in the
+// previous block of the call gets that line's name offset, so that the
+// caller decodes it once.  blocks[b * 3 ...]: first line, line count, 1
+// when every line was tokenized.  Returns the blocks written, at most
+// cap_blocks, and sets *resume to the first offset not consumed; -1 when
+// the first block alone has more than cap_lines lines.
+int64_t scan_maf_blocks(const uint8_t* base, int64_t start, int64_t end,
+                        int64_t cap_blocks, int64_t cap_lines,
+                        int64_t* blocks, int64_t* lines, int64_t* resume) {
+    int64_t p = start, nb = 0, nl = 0;
+    int64_t prev = 0, prev_n = 0;  // the last tokenized block's lines
+    while (p < end && nb < cap_blocks) {
+        if (base[p] != 's') {
+            const void* nlp = memchr(base + p, '\n', end - p);
+            p = nlp ? (const uint8_t*)nlp - base + 1 : end;
+            continue;
+        }
+        const int64_t first = nl, block = p;
+        bool ok = true;
+        while (p < end && base[p] == 's') {
+            if (nl == cap_lines) {
+                *resume = block;
+                return first == 0 ? -1 : nb;
+            }
+            int64_t* row = lines + nl * 10;
+            int64_t le;
+            if (!maf_fields(base, p, le, end, row)) {
+                ok = false;
+                const void* nlp = memchr(base + le, '\n', end - le);
+                le = nlp ? (const uint8_t*)nlp - base + 1 : end;
+            }
+            row[0] = p;
+            row[1] = le;
+            const int64_t* same = lines + (prev + nl - first) * 10;
+            if (ok && nl - first < prev_n && same[3] == row[3] &&
+                memcmp(base + same[2], base + row[2], row[3]) == 0)
+                row[2] = same[2];
+            ++nl;
+            p = le;
+        }
+        if (ok) {
+            prev = first;
+            prev_n = nl - first;
+        }
+        blocks[nb * 3] = first;
+        blocks[nb * 3 + 1] = nl - first;
+        blocks[nb * 3 + 2] = ok;
+        ++nb;
+    }
+    *resume = p;
+    return nb;
 }
 
 // bulk-format indel (INS/DEL) VCF rows in event order, byte-identical to

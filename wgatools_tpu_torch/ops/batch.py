@@ -4,11 +4,12 @@ Streams MAF records into [B, L] column batches, packs each batch into the
 category plane on the host, reduces it with classify_stat_cat on the
 device, and turns the counter rows back into RecStats with host-side
 strand routing.  With the native library the plane is packed from each
-record's own bytes straight into the buffer that goes up (on CUDA the
-pinned slot), and nothing past a row's length is written: the kernel and
-its plain version mask those columns.  Without it, padded byte planes are
-packed and staged.  Records of 2^31 columns or more would wrap the int32
-counters and take the int64 host engine instead, in order.
+record's own bytes, or from where its rows lie in stat's mapped input,
+straight into the buffer that goes up (on CUDA the pinned slot), and
+nothing past a row's length is written: the kernel and its plain version
+mask those columns.  Without it, padded byte planes are packed and
+staged.  Records of 2^31 columns or more would wrap the int32 counters
+and take the int64 host engine instead, in order.
 
 On CUDA the pipeline keeps one batch in flight: the host packs batch i+1
 while the device reduces batch i.  Each batch goes up from a pinned host
@@ -186,12 +187,19 @@ def _aligned(nbytes):
     return -(-nbytes // 16) * 16
 
 
-def stream_seq_pair_stats(items, device, batch_columns=DEFAULT_BATCH_COLUMNS):
+def stream_seq_pair_stats(items, device, batch_columns=DEFAULT_BATCH_COLUMNS,
+                          base=None):
     """Stream (t_bytes, q_bytes, negative, meta) items through the device;
     yields (meta, RecStat) in input order, with one batch in flight on
-    CUDA (see the module docstring).  METRICS phases: `parse` while items
-    are pulled, `pack`, then the device stage, and `emit` while a batch's
-    results are yielded (the consumer's work on them included)."""
+    CUDA (see the module docstring).  With `base`, a contiguous uint8
+    array (stat's mapped MAF), each item's t and q are instead the ranges
+    of their offsets in it, packed where they lie.  METRICS phases:
+    `parse` while items are pulled, `pack`, then the device stage, and
+    `emit` while a batch's results are yielded (the consumer's work on
+    them included)."""
+
+    def row(r):  # a row's bytes, or its view in base
+        return r if base is None else base[r.start : r.stop]
     cuda = device.type == "cuda"
     uploader = _PinnedUpload(device) if cuda else None
     phase = METRICS.phases()
@@ -215,14 +223,22 @@ def stream_seq_pair_stats(items, device, batch_columns=DEFAULT_BATCH_COLUMNS):
             off = _aligned(plane)
             n = off + lens.nbytes
             host = uploader.slot(n) if cuda else np.empty(n, np.uint8)
-            native.pack_cat_rows([it[0] for it in pending],
-                                 [it[1] for it in pending], lens, L // 2,
-                                 _CAT_LUT64K, host)
+            if base is None:
+                native.pack_cat_rows([it[0] for it in pending],
+                                     [it[1] for it in pending], lens, L // 2,
+                                     _CAT_LUT64K, host)
+            else:
+                native.pack_cat_rows_at(
+                    base, np.fromiter((it[0].start for it in pending),
+                                      np.int64, B),
+                    np.fromiter((it[1].start for it in pending), np.int64, B),
+                    lens, L // 2, _CAT_LUT64K, host)
             host[off:] = lens.view(np.uint8)
             METRICS.count("direct_pack_slots", B * L)
             cw = None
         else:
-            t, q, lens = pack_pairs([(it[0], it[1]) for it in pending])
+            t, q, lens = pack_pairs([(row(it[0]), row(it[1]))
+                                     for it in pending])
             cw = pack_cat_nibbles(t, q)  # pack_pairs aligns L to 128
             L = t.shape[1]
             plane = cw.nbytes
@@ -276,7 +292,8 @@ def stream_seq_pair_stats(items, device, batch_columns=DEFAULT_BATCH_COLUMNS):
                 if nf is not None:
                     yield from drain(nf)
                 phase.to("emit")
-                yield item[3], _host_pair_stat(item[0], item[1], item[2])
+                yield item[3], _host_pair_stat(row(item[0]), row(item[1]),
+                                               item[2])
                 phase.to("parse")
                 continue
             new_max = max(max_len, n)

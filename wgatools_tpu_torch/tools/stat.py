@@ -15,11 +15,15 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import native
 from ..core.cigar import RecStat, cigar_from_seqs, rec_stat_from_cigar, seq_bytes
 from ..core.device import DEFAULT_BATCH_COLUMNS, DEVICE_MIN_COLUMNS
 from ..core.fmt import fmt_f32
 from ..core.metrics import METRICS
 from ..core.natsort import rank_by_natural
+from ..core.strand import Strand
+from ..errors import QueryNameNotFound, WGAError
+from ..io.maf import map_reader, mapped_records
 from .validate import stream_batch_stats
 
 STAT_COLUMNS = (
@@ -237,6 +241,28 @@ def write_final(final, writer):
     writer.flush()
 
 
+def _mapped_items(records, query_name):
+    """The items of stat_maf's device route from io.maf.mapped_records:
+    the same (t, q, negative, meta), and the same errors, as from
+    MafRecords, with t and q the ranges of the rows in the mapping."""
+    for slines in records:
+        qi = 1
+        if query_name is not None:
+            qi = next((i for i, s in enumerate(slines) if s[0] == query_name),
+                      None)
+            if qi is None:
+                raise QueryNameNotFound(query_name)
+        if qi >= len(slines):  # as MafRecord._query_sline
+            raise WGAError(f"MAF record has {len(slines)} s-line(s) but query "
+                           f"index {qi}")
+        t_name, t_start, _, _, t_size, t = slines[0]
+        q_name, q_start, q_align, q_strand, q_size, q = slines[qi]
+        negative = q_strand == Strand.NEGATIVE
+        if negative:
+            q_start = q_size - q_start - q_align
+        yield t, q, negative, (t_name, t_size, q_name, q_size, t_start, q_start)
+
+
 def stat_maf(reader, writer, device, each=False, query_name=None,
              force_device=False, batch_columns=DEFAULT_BATCH_COLUMNS):
     """MAF statistics (reference: stat.rs:61-84).
@@ -246,7 +272,11 @@ def stat_maf(reader, writer, device, each=False, query_name=None,
     DEVICE_MIN_COLUMNS aligned columns; below that the host engine answers
     (device dispatch does not pay off there), unless force_device.  The
     input is never held whole: the decision buffers at most
-    DEVICE_MIN_COLUMNS columns."""
+    DEVICE_MIN_COLUMNS columns.  On the device route a plain uncompressed
+    file is mapped and tokenized by the native scanner
+    (io.maf.mapped_records), and its rows are packed where they lie in
+    the mapping; any other input, or no native library, goes through
+    MafReader."""
     if device is None:
         pair_stats = []
         for rec in reader.records():
@@ -270,9 +300,18 @@ def stat_maf(reader, writer, device, each=False, query_name=None,
             )
             yield (rec.target_seq, rec.query_seq, rec.is_negative, meta)
 
+    mm = map_reader(reader) if native.available() else None
+    if mm is None:
+        base, stream = None, items()
+    else:
+        base = np.frombuffer(mm, np.uint8)
+        stream = _mapped_items(mapped_records(mm, reader.offset()), query_name)
+
+    def row(r):  # a row's bytes as uint8
+        return seq_bytes(r) if base is None else base[r.start : r.stop]
+
     # METRICS: the head's parse here, the stream's phases in
     # stream_seq_pair_stats (PairStat is built inside its emit phase)
-    stream = items()
     head = []
     head_cols = 0
     if not force_device:
@@ -286,7 +325,7 @@ def stat_maf(reader, writer, device, each=False, query_name=None,
         with METRICS.stage("emit"):
             pair_stats = [
                 PairStat(*m, rec_stat=rec_stat_from_cigar(
-                    cigar_from_seqs(seq_bytes(t), seq_bytes(q), neg)))
+                    cigar_from_seqs(row(t), row(q), neg)))
                 for t, q, neg, m in head
             ]
     else:
@@ -295,7 +334,7 @@ def stat_maf(reader, writer, device, each=False, query_name=None,
         pair_stats = [
             PairStat(*m, rec_stat=rs)
             for m, rs in stream_seq_pair_stats(
-                itertools.chain(head, stream), device, batch_columns)
+                itertools.chain(head, stream), device, batch_columns, base)
         ]
     with METRICS.stage("emit"):
         final = final_stats(pair_stats, each)
