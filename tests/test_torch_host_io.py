@@ -136,6 +136,27 @@ def test_maf_reader_and_writer(seed):
     assert outs[0] == outs[1]
 
 
+@pytest.mark.parametrize("query", [None, "t", "q", "missing"])
+@pytest.mark.parametrize("n_lines", [1, 2])
+def test_maf_query_selection_fails_alike(n_lines, query):
+    """The query s-line of a block of 1 or 2 s-lines, by index or by name:
+    the same name and forward-strand coordinates, or the same error (an
+    index past the block, a name no s-line has)."""
+    lines = [b"s t 10 4 + 100 ACGT", b"s q 5 4 - 50 AC-T"][:n_lines]
+    data = b"##maf version=1\n\na score=0\n" + b"\n".join(lines) + b"\n\n"
+
+    def query_of(mod):
+        rec = next(mod.MafReader(io.BytesIO(data)).records())
+        if query is not None:
+            rec.set_query_idx_byname(query)
+        return rec.query_name, rec.query_start, rec.query_end
+
+    got, want = outcome(query_of, T), outcome(query_of, J)
+    assert got == want
+    assert (got[1] is None) == (query == "t" or (
+        query != "missing" and n_lines == 2))
+
+
 def paf_view(rec):
     ops, lens = rec.get_cigar_ops()
     return {"record": plain(rec), "ops": plain(ops), "lens": plain(lens),

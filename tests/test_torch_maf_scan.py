@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from wgatools_tpu_torch import native
 from wgatools_tpu_torch.core.metrics import METRICS
 from wgatools_tpu_torch.io import maf
 from wgatools_tpu_torch.io.compression import open_input
@@ -288,6 +289,43 @@ def test_odd_lines_keep_the_reader_outcome(case, tmp_path, monkeypatch):
     if got[0] == "ok":
         assert _scan_records(path) == _reader_records(path)
         assert counts["native_scan_blocks"] == 3 - int(refused)
+
+
+class _GarbageEmpty:
+    """numpy, but np.empty's integer arrays come filled with random
+    values, negative and far past any file's size among them."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+
+    def __getattr__(self, name):
+        return getattr(np, name)
+
+    def empty(self, shape, dtype=float, *args, **kwargs):
+        out = np.empty(shape, dtype, *args, **kwargs)
+        if np.issubdtype(out.dtype, np.integer):
+            out[...] = self.rng.integers(-(1 << 62), 1 << 62, out.shape)
+        return out
+
+
+@pytest.mark.parametrize("span", [1, 2])
+@pytest.mark.parametrize("line", [b"sx q 0 4 + 9 ACGT\n",
+                                  b"s q\x01 0 4 + 9 ACGT\n"],
+                         ids=["mode_sx", "control_byte_name"])
+def test_refused_blocks_read_no_unwritten_table_cell(line, span, tmp_path,
+                                                     monkeypatch):
+    """Over spans of 1 and 2 blocks, with the scanner's tables allocated
+    over garbage: a block the scanner refuses (MafReader accepts both)
+    gives MafReader's records and table, whatever its unwritten cells
+    hold."""
+    path = _write(tmp_path, _bad_line(line))
+    monkeypatch.setattr(maf, "SCAN_BLOCKS", span)
+    monkeypatch.setattr(native, "np", _GarbageEmpty(span))
+    got, counts = _stat(path, True, monkeypatch)
+    want, _ = _stat(path, False, monkeypatch)
+    assert got == want and got[0] == "ok"
+    assert counts["scan_fallback_blocks"] == 1
+    assert _scan_records(path) == _reader_records(path)
 
 
 def test_int32_route_through_the_mapping(tmp_path, monkeypatch):

@@ -1,11 +1,11 @@
-"""stat's category plane packed straight from each block's bytes, or from
-where its rows lie in one buffer (native.pack_cat_rows and
-pack_cat_rows_at, ops.batch.stream_seq_pair_stats): the same nibbles
+"""stat's category plane packed straight from where each block's rows lie,
+as bytes objects or at offsets in one buffer (native.pack_cat_rows over
+io.maf.BytesRows / MappedRows, ops.batch.stream_seq_pair_stats): the same nibbles
 as the padded byte planes' route on every valid column, nothing written
 past a row's last byte, nothing past a length read by kernel A's plain
 version, and the same RecStats with and without the native library.
 The last test runs only on the CUDA card: the pinned slot's hand-out and
-send against `_PinnedUpload.upload`.
+send against `PinnedSlots.upload`.
 """
 
 from dataclasses import astuple
@@ -21,7 +21,8 @@ from wgatools_tpu_torch.core.cigar import (
     seq_bytes,
 )
 from wgatools_tpu_torch.core.metrics import METRICS
-from wgatools_tpu_torch.ops import batch
+from wgatools_tpu_torch.io.maf import BytesRows, MappedRows
+from wgatools_tpu_torch.ops import batch, pipeline
 from wgatools_tpu_torch.ops.classify import (
     _CAT_LUT64K,
     classify_stat_cat,
@@ -72,14 +73,20 @@ CASES = {"random": _random_pairs, "ragged": _ragged_pairs,
          "all_byte_pairs": _all_byte_pairs}
 
 
+def _pack_bytes(pairs, lens, row_bytes, dst):
+    """native.pack_cat_rows on the rows of `pairs` as bytes objects."""
+    return native.pack_cat_rows(BytesRows.addresses([p[0] for p in pairs], lens),
+                                BytesRows.addresses([p[1] for p in pairs], lens),
+                                lens, row_bytes, _CAT_LUT64K, dst)
+
+
 def _planes(pairs):
     """(today's padded category plane as uint8 [B, L/2], the rows packed
     straight into a GARBAGE-filled buffer of that shape, lengths)."""
     t, q, lens = pack_pairs(pairs)
     want = pack_cat_nibbles(t, q).view(np.uint8)
     got = np.full(want.shape, GARBAGE, np.uint8)
-    assert native.pack_cat_rows([p[0] for p in pairs], [p[1] for p in pairs],
-                                lens, want.shape[1], _CAT_LUT64K, got)
+    assert _pack_bytes(pairs, lens, want.shape[1], got)
     return want, got, lens
 
 
@@ -107,8 +114,7 @@ def test_plain_kernel_reads_nothing_past_a_length(case, caller):
         torch.from_numpy(pack_cat_nibbles(t, q)), torch.from_numpy(lens),
         caller)
     got = rng.integers(0, 256, (t.shape[0], t.shape[1] // 2), dtype=np.uint8)
-    assert native.pack_cat_rows([p[0] for p in pairs], [p[1] for p in pairs],
-                                lens, got.shape[1], _CAT_LUT64K, got)
+    assert _pack_bytes(pairs, lens, got.shape[1], got)
     rows = classify_stat_cat_ref(
         torch.from_numpy(got.view("<i4")), torch.from_numpy(lens), caller)
     assert torch.equal(rows, want)
@@ -135,6 +141,20 @@ def _host_stats(items):
             for t, q, neg, _ in items]
 
 
+def _native_spy(monkeypatch):
+    """The columns each native.pack_cat_rows call was given room for
+    (rows x 2 row_bytes), in call order."""
+    seen = []
+    real = native.pack_cat_rows
+
+    def spy(t_addr, q_addr, lens, row_bytes, lut, dst):
+        seen.append(len(lens) * 2 * row_bytes)
+        return real(t_addr, q_addr, lens, row_bytes, lut, dst)
+
+    monkeypatch.setattr(native, "pack_cat_rows", spy)
+    return seen
+
+
 @pytest.mark.parametrize("int32_safe", [None, 3000],
                          ids=["device_only", "int32_route"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -142,28 +162,30 @@ def test_stream_native_equals_fallback(seed, int32_safe, monkeypatch):
     """stream_seq_pair_stats on the CPU device: the same RecStats in input
     order with the native packer as without the library (pack_pairs and
     pack_cat_nibbles), with blocks past a lowered INT32_SAFE_COLUMNS
-    routed to the int64 host engine mid-stream; direct_pack_slots counts
+    routed to the int64 host engine mid-stream; the native packer packs
     every slot on the native route and none on the fallback."""
     items = _stream_items(seed, long_at=(5, 6, 15))
     if int32_safe is not None:
         monkeypatch.setattr(batch, "INT32_SAFE_COLUMNS", int32_safe)
+    packed = _native_spy(monkeypatch)
 
     def run():
         monkeypatch.setattr(METRICS, "counts", {})
         got = list(batch.stream_seq_pair_stats(iter(items), CPU, 6000))
-        return got, dict(METRICS.counts)
+        return got, dict(METRICS.counts), packed.copy()
 
-    direct, direct_counts = run()
+    direct, direct_counts, direct_packed = run()
+    packed.clear()
     with monkeypatch.context() as m:
         m.setattr(native, "load", lambda: None)
         assert not native.available()
-        fallback, fallback_counts = run()
+        fallback, fallback_counts, fallback_packed = run()
     assert [(m, astuple(rs)) for m, rs in direct] == [
         (m, astuple(rs)) for m, rs in fallback]
     assert [m for m, _ in direct] == [it[3] for it in items]
     assert [rs for _, rs in direct] == _host_stats(items)
-    assert direct_counts["direct_pack_slots"] == direct_counts["slots"] > 0
-    assert "direct_pack_slots" not in fallback_counts
+    assert sum(direct_packed) == direct_counts["slots"] > 0
+    assert fallback_packed == []
     for key in ("slots", "padded_slots"):
         assert direct_counts[key] == fallback_counts[key]
 
@@ -188,34 +210,53 @@ def _one_buffer(rng, pairs):
                                                    "plus_64"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_rows_at_offsets_equal_bytes_rows(case, extra):
-    """pack_cat_rows_at on rows at unaligned offsets of one buffer writes
-    the same bytes as pack_cat_rows on the rows as bytes objects, with
-    odd, 0 and 1 lengths, row_bytes at or past a row's length, and nothing
-    past a row's last byte."""
+    """native.pack_cat_rows on rows at unaligned addresses of one buffer
+    writes the padded plane's nibbles on every valid column, with odd, 0
+    and 1 lengths, row_bytes at or past a row's length, and nothing past a
+    row's last byte."""
     rng = np.random.default_rng(13)
     pairs = CASES[case](rng)
     buf, t_off, q_off = _one_buffer(rng, pairs)
-    lens = np.array([min(len(t), len(q)) for t, q in pairs], np.int32)
+    t, q, lens = pack_pairs(pairs)
+    plane = pack_cat_nibbles(t, q).view(np.uint8)
     row_bytes = (int(lens.max()) + 1) // 2 + extra
-    want = np.full((len(pairs), row_bytes), GARBAGE, np.uint8)
-    got = want.copy()
-    assert native.pack_cat_rows([p[0] for p in pairs], [p[1] for p in pairs],
-                                lens, row_bytes, _CAT_LUT64K, want)
-    assert native.pack_cat_rows_at(buf, t_off, q_off, lens, row_bytes,
-                                   _CAT_LUT64K, got)
-    assert np.array_equal(got, want)
+    got = np.full((len(pairs), row_bytes), GARBAGE, np.uint8)
+    rows = MappedRows(buf)
+    t_addr = rows.addresses([range(o, o + len(p[0])) for o, p in
+                             zip(t_off.tolist(), pairs)], lens)
+    q_addr = rows.addresses([range(o, o + len(p[1])) for o, p in
+                             zip(q_off.tolist(), pairs)], lens)
+    assert native.pack_cat_rows(t_addr, q_addr, lens, row_bytes,
+                                _CAT_LUT64K, got)
     for k, n in enumerate(lens.tolist()):
+        full = n // 2
+        assert np.array_equal(got[k, :full], plane[k, :full]), k
+        if n % 2:
+            assert got[k, full] & 0xF == plane[k, full] & 0xF, k
         assert (got[k, (n + 1) // 2 :] == GARBAGE).all(), k
+
+
+@pytest.mark.parametrize("start, length", [(-1, 4), (0, 17), (13, 4)],
+                         ids=["before", "past_by_one", "past_the_end"])
+def test_mapped_rows_refuse_rows_outside_the_buffer(start, length):
+    """MappedRows hands the packer no address of a row that begins before
+    its buffer or whose lens[k] bytes run past the buffer's end."""
+    rows = MappedRows(np.zeros(16, np.uint8))
+    lens = np.array([4, length], np.int32)
+    # a row that ends at the buffer's end is inside
+    assert rows.addresses([range(12, 16)], lens[:1]).size == 1
+    with pytest.raises(AssertionError):
+        rows.addresses([range(0, 4), range(start, start + length)], lens)
 
 
 @pytest.mark.parametrize("library", [True, False], ids=["native", "numpy"])
 @pytest.mark.parametrize("int32_safe", [None, 3000],
                          ids=["device_only", "int32_route"])
 def test_stream_rows_at_offsets_equal_bytes(library, int32_safe, monkeypatch):
-    """stream_seq_pair_stats with its rows given as ranges of one buffer
-    gives the RecStats of the same rows as bytes: packed in place with the
-    library, viewed for pack_pairs without it and for the int64 host
-    engine past a lowered INT32_SAFE_COLUMNS."""
+    """stream_seq_pair_stats with its rows given as ranges of offsets in
+    one buffer (MappedRows) gives the RecStats of the same rows as bytes:
+    packed in place with the library, viewed for pack_pairs without it and
+    for the int64 host engine past a lowered INT32_SAFE_COLUMNS."""
     items = _stream_items(4, long_at=(5, 6, 15))
     buf, t_off, q_off = _one_buffer(np.random.default_rng(17),
                                     [(t, q) for t, q, _, _ in items])
@@ -224,13 +265,15 @@ def test_stream_rows_at_offsets_equal_bytes(library, int32_safe, monkeypatch):
                                                    q_off.tolist())]
     if int32_safe is not None:
         monkeypatch.setattr(batch, "INT32_SAFE_COLUMNS", int32_safe)
+    packed = _native_spy(monkeypatch)
     if not library:
         monkeypatch.setattr(native, "load", lambda: None)
     monkeypatch.setattr(METRICS, "counts", {})
-    got = list(batch.stream_seq_pair_stats(iter(ranged), CPU, 6000, buf))
+    got = list(batch.stream_seq_pair_stats(iter(ranged), CPU, 6000,
+                                           MappedRows(buf)))
     assert [m for m, _ in got] == [it[3] for it in items]
     assert [rs for _, rs in got] == _host_stats(items)
-    assert ("direct_pack_slots" in METRICS.counts) == library
+    assert sum(packed) == (METRICS.counts["slots"] if library else 0)
 
 
 def test_slot_send_on_the_card_equals_upload(monkeypatch):
@@ -238,26 +281,24 @@ def test_slot_send_on_the_card_equals_upload(monkeypatch):
     pinned slots (filled with garbage first) and sent give kernel A the
     same counters as upload() of the padded plane, so a slot is refilled
     only after its previous upload has left; stream_seq_pair_stats' native
-    route equals its fallback, and direct_pack_slots counts its slots."""
+    route equals its fallback, and the native packer packs its slots."""
     if not torch.cuda.is_available():
         pytest.skip("needs the CUDA card")
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
     batches = [_random_pairs(rng), _ragged_pairs(rng), _random_pairs(rng),
                _all_byte_pairs(rng)]
-    up_direct = batch._PinnedUpload(dev)
-    up_staged = batch._PinnedUpload(dev)
+    up_direct = pipeline.PinnedSlots(dev)
+    up_staged = pipeline.PinnedSlots(dev)
     got, want = [], []
     for pairs in batches:
         t, q, lens = pack_pairs(pairs)
         B, L = t.shape
-        off = batch._aligned(B * L // 2)
+        off = pipeline.aligned(B * L // 2)
         n = off + lens.nbytes
         host = up_direct.slot(n)
         host[:] = rng.integers(0, 256, n, dtype=np.uint8)
-        assert native.pack_cat_rows([p[0] for p in pairs],
-                                    [p[1] for p in pairs], lens, L // 2,
-                                    _CAT_LUT64K, host)
+        assert _pack_bytes(pairs, lens, L // 2, host)
         host[off:] = lens.view(np.uint8)
         raw = up_direct.send(n)
         got.append(classify_stat_cat(
@@ -271,6 +312,7 @@ def test_slot_send_on_the_card_equals_upload(monkeypatch):
 
     items = _stream_items(3, n_items=40)
     monkeypatch.setattr(METRICS, "counts", {})
+    packed = _native_spy(monkeypatch)
     direct = list(batch.stream_seq_pair_stats(iter(items), dev, 6000))
     counts = dict(METRICS.counts)
     with monkeypatch.context() as m:
@@ -278,4 +320,4 @@ def test_slot_send_on_the_card_equals_upload(monkeypatch):
         fallback = list(batch.stream_seq_pair_stats(iter(items), dev, 6000))
     assert direct == fallback
     assert [rs for _, rs in direct] == _host_stats(items)
-    assert counts["direct_pack_slots"] == counts["slots"] > 0
+    assert sum(packed) == counts["slots"] > 0

@@ -147,9 +147,6 @@ def test_stream_stats_order_with_int32_route(monkeypatch):
         (m, astuple(rs)) for m, rs in want]
     for (t, q, neg, _), (_, rs) in zip(items, got):
         assert rs == rec_stat_from_cigar(cigar_from_seqs(seq_bytes(t), seq_bytes(q), neg))
-    pairs = [(t, q) for t, q, _, _ in items]
-    negs = [neg for _, _, neg, _ in items]
-    assert torch_batch.batch_rec_stats(pairs, negs, CPU, 8192) == [rs for _, rs in got]
 
 
 @pytest.mark.parametrize("seed", range(3))

@@ -27,9 +27,7 @@ otherwise:
 
 Counters: `slots` and `padded_slots`, the op slots (kernel B) or columns
 (kernel A) of every batch a tool uploads, and those of them that are
-padding; `direct_pack_slots`, the columns of stat's batches whose category
-plane was packed straight from the blocks' bytes into the buffer that goes
-up (ops/batch.py; the padding in them is never written);
+padding;
 `native_scan_blocks` and `scan_fallback_blocks`, the MAF blocks of stat's
 mapped input that the native scanner tokenized and those whose lines went
 through parse_sline (io/maf.py mapped_records).

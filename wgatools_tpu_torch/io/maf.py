@@ -13,6 +13,7 @@ Reader semantics mirror the reference exactly:
   * s-lines must have exactly 7 whitespace-separated fields (maf.rs:138-211).
 """
 
+import ctypes
 import io
 import mmap
 import os
@@ -35,6 +36,7 @@ from ..errors import (
     ParseMafError,
     QueryNameNotFound,
     SLineCountNotMatch,
+    WGAError,
 )
 
 
@@ -111,6 +113,32 @@ def parse_sline(line: bytes) -> MafSLine:
         raise ParseMafError(f"non-ASCII bytes in s-line field: {e}")
 
 
+def query_index(n_lines, idx) -> int:
+    """`idx`, a block's query s-line among its n_lines, for MafRecord and
+    stat's mapped route alike.  The reference panics on an index past the
+    block (a Rust index); a WGAError here."""
+    if idx >= n_lines:
+        raise WGAError(
+            f"MAF record has {n_lines} s-line(s) but query index {idx}")
+    return idx
+
+
+def query_by_name(names, name) -> int:
+    """The index of the first of a block's s-line names (any iterable, in
+    order) equal to `name`; QueryNameNotFound when none is."""
+    for i, n in enumerate(names):
+        if n == name:
+            return i
+    raise QueryNameNotFound(name)
+
+
+def forward_start(start, align_size, strand, size) -> int:
+    """A query s-line's start on the forward strand (maf.rs query_start)."""
+    if strand == Strand.NEGATIVE:
+        return size - start - align_size
+    return start
+
+
 @dataclass
 class MafRecord:
     """A MAF alignment block (reference: maf.rs:216-220)."""
@@ -122,16 +150,7 @@ class MafRecord:
     # -- AlignRecord surface (reference: maf.rs:424-540) --
 
     def _query_sline(self) -> MafSLine:
-        """The reference panics on out-of-range query access (Rust index);
-        surface it as a WGAError instead."""
-        if self.query_idx >= len(self.slines):
-            from ..errors import WGAError
-
-            raise WGAError(
-                f"MAF record has {len(self.slines)} s-line(s) but query "
-                f"index {self.query_idx}"
-            )
-        return self.slines[self.query_idx]
+        return self.slines[query_index(len(self.slines), self.query_idx)]
 
     @property
     def query_name(self) -> str:
@@ -148,9 +167,7 @@ class MafRecord:
     @property
     def query_start(self) -> int:
         s = self._query_sline()
-        if s.strand == Strand.NEGATIVE:
-            return s.size - s.start - s.align_size
-        return s.start
+        return forward_start(s.start, s.align_size, s.strand, s.size)
 
     @property
     def query_end(self) -> int:
@@ -227,10 +244,7 @@ class MafRecord:
         return None
 
     def set_query_idx_byname(self, name: str):
-        idx = self.get_query_idx_byname(name)
-        if idx is None:
-            raise QueryNameNotFound(name)
-        self.query_idx = idx
+        self.query_idx = query_by_name((s.name for s in self.slines), name)
 
     def set_query_idx_by_regex(self, regex):
         for i, s in enumerate(self.slines):
@@ -399,10 +413,10 @@ def mapped_records(mm, start):
     """The records of a mapped MAF (map_reader's mapping) from byte `start`,
     in MafReader.records()'s order, each as a list of its s-lines' (name,
     start, align_size, strand, size, seq) with seq the range of the
-    sequence's offsets in the mapping.  The native scanner tokenizes spans
-    of SCAN_BLOCKS blocks; the lines of a block it refuses go through
-    parse_sline, which raises as MafReader does.  Counters:
-    `native_scan_blocks`, `scan_fallback_blocks`."""
+    sequence's offsets in the mapping (rows for MappedRows).  The native
+    scanner tokenizes spans of SCAN_BLOCKS blocks; the lines of a block it
+    refuses go through parse_sline, which raises as MafReader does.
+    Counters: `native_scan_blocks`, `scan_fallback_blocks`."""
     from .. import native
 
     base = np.frombuffer(mm, np.uint8)
@@ -428,6 +442,41 @@ def mapped_records(mm, start):
                 slines.append((s.name, s.start, s.align_size, s.strand,
                                s.size, range(end - len(s.seq), end)))
             yield slines
+
+
+class BytesRows:
+    """Rows held as bytes objects (the sequences of MafReader's records),
+    for stat's packer (ops.batch.stream_seq_pair_stats)."""
+
+    @staticmethod
+    def addresses(rows, lens) -> np.ndarray:
+        """int64 addresses of rows to read lens[k] bytes of each from in
+        place; the array keeps the rows alive."""
+        return np.frombuffer((ctypes.c_char_p * len(rows))(*rows), np.int64)
+
+    @staticmethod
+    def array(row) -> np.ndarray:
+        """A row as a uint8 array, not copied."""
+        return np.frombuffer(row, np.uint8)
+
+
+class MappedRows:
+    """Rows held as ranges of offsets into one buffer, mapped_records' in
+    its mapping: BytesRows' surface over them.  Holds the buffer, so the
+    mapping stays open while the rows are read."""
+
+    def __init__(self, buf):
+        self.base = np.frombuffer(buf, np.uint8)
+
+    def addresses(self, rows, lens) -> np.ndarray:
+        off = np.fromiter((r.start for r in rows), np.int64, len(rows))
+        # lens[k] bytes are read from each row: all inside the buffer
+        assert off.min(initial=0) >= 0
+        assert (off + lens).max(initial=0) <= self.base.size
+        return off + self.base.ctypes.data
+
+    def array(self, row) -> np.ndarray:
+        return self.base[row.start : row.stop]
 
 
 def _name(names, mm, offset, n):

@@ -85,10 +85,6 @@ def load():
         lib.pack_cats.restype = None
         lib.pack_cat_rows.argtypes = [_ptr, _ptr, _ptr, _i64, _i64, _ptr, _ptr]
         lib.pack_cat_rows.restype = None
-        lib.pack_cat_rows_at.argtypes = [
-            _ptr, _ptr, _ptr, _ptr, _i64, _i64, _ptr, _ptr,
-        ]
-        lib.pack_cat_rows_at.restype = None
         lib.scan_maf_blocks.argtypes = [
             _ptr, _i64, _i64, _i64, _i64, _ptr, _ptr, _ptr,
         ]
@@ -774,54 +770,29 @@ def pack_cats(t: np.ndarray, q: np.ndarray, lut64k: np.ndarray):
     return out.view("<i4")
 
 
-def pack_cat_rows(ts, qs, lens: np.ndarray, row_bytes: int,
-                  lut64k: np.ndarray, dst: np.ndarray) -> bool:
-    """CATEGORY-plane packing straight from each row's bytes: row k's
-    lens[k] columns of the bytes objects ts[k] and qs[k] (read in place,
-    without a copy) become lens[k] nibbles at byte k * row_bytes of dst,
-    through the 64K LUT as in pack_cats.  lens: int32, at most
-    min(len(ts[k]), len(qs[k])) each; dst: contiguous uint8 of at least
-    len(lens) * row_bytes bytes, written nowhere past a row's last byte.
-    False when the library is unavailable."""
-    lib = load()
-    if lib is None:
-        return False
-    B = len(lens)
-    assert len(ts) == len(qs) == B and lens.dtype == np.int32
-    assert lens.flags.c_contiguous and 2 * row_bytes >= int(lens.max(initial=0))
-    assert dst.dtype == np.uint8 and dst.flags.c_contiguous
-    assert dst.nbytes >= B * row_bytes
-    lib.pack_cat_rows((ctypes.c_char_p * B)(*ts), (ctypes.c_char_p * B)(*qs),
-                      lens.ctypes.data, B, row_bytes, lut64k.ctypes.data,
-                      dst.ctypes.data)
-    return True
-
-
-def pack_cat_rows_at(base: np.ndarray, t_off: np.ndarray, q_off: np.ndarray,
-                     lens: np.ndarray, row_bytes: int, lut64k: np.ndarray,
-                     dst: np.ndarray) -> bool:
-    """pack_cat_rows with row k's columns read at base[t_off[k]:] and
-    base[q_off[k]:], offsets into one contiguous uint8 buffer (a mapped
-    file), instead of from bytes objects.  t_off, q_off: int64, with
-    lens[k] columns inside base from each.  False when the library is
+def pack_cat_rows(t_addr: np.ndarray, q_addr: np.ndarray, lens: np.ndarray,
+                  row_bytes: int, lut64k: np.ndarray, dst: np.ndarray) -> bool:
+    """CATEGORY-plane packing straight from where each row lies: row k's
+    lens[k] columns, read in place at the addresses t_addr[k] and
+    q_addr[k] (int64; io.maf's BytesRows / MappedRows, whose caller keeps
+    that memory alive), become lens[k] nibbles at byte k * row_bytes of dst, through
+    the 64K LUT as in pack_cats.  lens: int32, at most each row's length;
+    dst: contiguous uint8 of at least len(lens) * row_bytes bytes, written
+    nowhere past a row's last byte.  False when the library is
     unavailable."""
     lib = load()
     if lib is None:
         return False
     B = len(lens)
-    assert base.dtype == np.uint8 and base.flags.c_contiguous
-    assert t_off.dtype == q_off.dtype == np.int64 and lens.dtype == np.int32
-    assert len(t_off) == len(q_off) == B
-    assert t_off.flags.c_contiguous and q_off.flags.c_contiguous
+    assert t_addr.dtype == q_addr.dtype == np.int64 and lens.dtype == np.int32
+    assert len(t_addr) == len(q_addr) == B
+    assert t_addr.flags.c_contiguous and q_addr.flags.c_contiguous
     assert lens.flags.c_contiguous and 2 * row_bytes >= int(lens.max(initial=0))
     assert dst.dtype == np.uint8 and dst.flags.c_contiguous
     assert dst.nbytes >= B * row_bytes
-    if B:
-        assert min(int(t_off.min()), int(q_off.min())) >= 0
-        assert int(np.maximum(t_off + lens, q_off + lens).max()) <= base.size
-    lib.pack_cat_rows_at(base.ctypes.data, t_off.ctypes.data,
-                         q_off.ctypes.data, lens.ctypes.data, B, row_bytes,
-                         lut64k.ctypes.data, dst.ctypes.data)
+    lib.pack_cat_rows(t_addr.ctypes.data, q_addr.ctypes.data,
+                      lens.ctypes.data, B, row_bytes, lut64k.ctypes.data,
+                      dst.ctypes.data)
     return True
 
 

@@ -1032,40 +1032,28 @@ void pack_cats(const uint8_t* t, const uint8_t* q, int64_t n,
     }
 }
 
-// The same category nibbles, packed from each row's own bytes instead of
-// padded byte planes (ops/batch.py stream_seq_pair_stats): row k's lens[k]
-// columns, from ts[k] and qs[k], go to dst + k * row_bytes, two columns a
-// byte.  A row's odd last column fills the low nibble of its last byte.
-// Nothing past a row's last byte is written: the kernel and its plain
-// version mask every column at or past lens[k].
-static inline void pack_cat_row(const uint8_t* t, const uint8_t* q,
-                                int64_t n, const uint8_t* lut64k,
-                                uint8_t* d) {
-    int64_t i = 0;
-    for (; i + 1 < n; i += 2) {
-        uint8_t a = lut64k[((uint32_t)t[i] << 8) | q[i]];
-        uint8_t b = lut64k[((uint32_t)t[i + 1] << 8) | q[i + 1]];
-        d[i >> 1] = (uint8_t)(a | (b << 4));
-    }
-    if (i < n) d[i >> 1] = lut64k[((uint32_t)t[i] << 8) | q[i]];
-}
-
-void pack_cat_rows(const uint8_t* const* ts, const uint8_t* const* qs,
+// The same category nibbles, packed from each row where it lies instead
+// of from padded byte planes (ops/batch.py pack_cat_plane): row k's lens[k]
+// columns, read at the addresses t_addr[k] and q_addr[k], go to
+// dst + k * row_bytes, two columns a byte.  A row's odd last column fills
+// the low nibble of its last byte.  Nothing past a row's last byte is
+// written: the kernel and its plain version mask every column at or past
+// lens[k].
+void pack_cat_rows(const int64_t* t_addr, const int64_t* q_addr,
                    const int32_t* lens, int64_t B, int64_t row_bytes,
                    const uint8_t* lut64k, uint8_t* dst) {
-    for (int64_t k = 0; k < B; ++k)
-        pack_cat_row(ts[k], qs[k], lens[k], lut64k, dst + k * row_bytes);
-}
-
-// pack_cat_rows with the rows given as offsets into one buffer (stat's
-// mapped MAF): row k reads base + t_off[k] and base + q_off[k].
-void pack_cat_rows_at(const uint8_t* base, const int64_t* t_off,
-                      const int64_t* q_off, const int32_t* lens, int64_t B,
-                      int64_t row_bytes, const uint8_t* lut64k,
-                      uint8_t* dst) {
-    for (int64_t k = 0; k < B; ++k)
-        pack_cat_row(base + t_off[k], base + q_off[k], lens[k], lut64k,
-                     dst + k * row_bytes);
+    for (int64_t k = 0; k < B; ++k) {
+        const uint8_t* t = (const uint8_t*)(intptr_t)t_addr[k];
+        const uint8_t* q = (const uint8_t*)(intptr_t)q_addr[k];
+        uint8_t* d = dst + k * row_bytes;
+        int64_t n = lens[k], i = 0;
+        for (; i + 1 < n; i += 2) {
+            uint8_t a = lut64k[((uint32_t)t[i] << 8) | q[i]];
+            uint8_t b = lut64k[((uint32_t)t[i + 1] << 8) | q[i + 1]];
+            d[i >> 1] = (uint8_t)(a | (b << 4));
+        }
+        if (i < n) d[i >> 1] = lut64k[((uint32_t)t[i] << 8) | q[i]];
+    }
 }
 
 // bytes.split(None)'s whitespace but '\n', which ends the line instead

@@ -94,7 +94,7 @@ def start_runs(t, q, lengths, device, caller=False, uploader=None):
     in between, the device works while the host packs the next batch.
 
     t, q: uint8 [B, L] numpy planes or tensors; lengths: int32 [B].
-    uploader: an ops.batch._PinnedUpload for the host planes (pinned,
+    uploader: an ops.pipeline.PinnedSlots for the host planes (pinned,
     non_blocking), or None for a plain copy."""
     if (
         isinstance(t, np.ndarray)

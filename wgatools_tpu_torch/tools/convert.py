@@ -137,70 +137,46 @@ def _batched_ext_runs(mafreader, query_name, emit, device):
     """Stream MAF records through the run extraction on `device`, calling
     emit(record, index, run_vals, run_lens) in input order.
 
-    One batch in flight: start_runs uploads batch i+1 and launches its
-    statistics kernel before finish_runs waits for batch i, so the host
-    parses and packs while the device works.  A batch holds up to
-    DEFAULT_BATCH_COLUMNS padded columns; one of fewer than
+    ops.pipeline.overlapped batches them, DEFAULT_BATCH_COLUMNS padded
+    columns a batch, one batch in flight: start uploads batch i+1 and
+    launches its statistics kernel before finish waits for batch i, so the
+    host parses and packs while the device works.  A batch of fewer than
     DEVICE_MIN_COLUMNS columns is answered by the host engine."""
-    from ..ops.batch import _PinnedUpload
     from ..ops.classify import pack_pairs
+    from ..ops.pipeline import PinnedSlots, overlapped
     from ..ops.rle_device import finish_runs, split_run_tables, start_runs
 
-    uploader = _PinnedUpload(device) if device.type == "cuda" else None
-    pending = []
-    max_len = 0
-    next_index = 0
-    in_flight = None  # (records, device state) or ("host", records)
+    slots = PinnedSlots(device) if device.type == "cuda" else None
 
-    def dispatch():
-        nonlocal max_len
-        if not pending:
-            return None
-        recs = list(pending)
-        pending.clear()
-        max_len = 0
-        total_cols = sum(len(r.target_seq) for r in recs)
+    def items():
+        for record in mafreader.records():
+            if query_name is not None:
+                record.set_query_idx_byname(query_name)
+            yield record.target_seq, record
+
+    def start(batch):
+        recs = [rec for _, rec in batch]
+        total_cols = sum(len(t) for t, _ in batch)
         if total_cols < DEVICE_MIN_COLUMNS:
-            return ("host", recs)
+            return recs, None
         with METRICS.stage("pack", total_cols * 2):
-            t, q, lens = pack_pairs([(r.target_seq, r.query_seq) for r in recs])
-        return (recs, start_runs(t, q, lens, device, uploader=uploader))
+            t, q, lens = pack_pairs([(t, rec.query_seq) for t, rec in batch])
+        return recs, start_runs(t, q, lens, device, uploader=slots)
 
-    def drain(batch):
-        nonlocal next_index
-        if batch[0] == "host":
-            for rec in batch[1]:
-                vals, lens = _maf_ext_runs(rec)
-                emit(rec, next_index, vals, lens)
-                next_index += 1
+    def finish(state):
+        recs, runs = state
+        if runs is None:
+            for rec in recs:
+                yield rec, _maf_ext_runs(rec)
             return
-        recs, state = batch
         with METRICS.stage("device_rle"):
-            row_ids, cats, run_lens = finish_runs(state)
-        for rec, (vals, lens) in zip(
-            recs, split_run_tables(len(recs), row_ids, cats, run_lens)
-        ):
-            emit(rec, next_index, vals, lens)
-            next_index += 1
+            row_ids, cats, run_lens = finish_runs(runs)
+        yield from zip(recs, split_run_tables(len(recs), row_ids, cats,
+                                              run_lens))
 
-    for record in mafreader.records():
-        if query_name is not None:
-            record.set_query_idx_byname(query_name)
-        n = len(record.target_seq)
-        new_max = max(max_len, n)
-        if pending and new_max * (len(pending) + 1) > DEFAULT_BATCH_COLUMNS:
-            nf = dispatch()
-            if in_flight is not None:
-                drain(in_flight)
-            in_flight = nf
-            new_max = n
-        max_len = new_max
-        pending.append(record)
-    nf = dispatch()
-    if in_flight is not None:
-        drain(in_flight)
-    if nf is not None:
-        drain(nf)
+    for index, (rec, (vals, lens)) in enumerate(
+            overlapped(items(), start, finish, DEFAULT_BATCH_COLUMNS)):
+        emit(rec, index, vals, lens)
 
 
 def paf2chain(pafreader: PafReader, writer, device):

@@ -16,14 +16,21 @@ from dataclasses import dataclass
 import numpy as np
 
 from .. import native
-from ..core.cigar import RecStat, cigar_from_seqs, rec_stat_from_cigar, seq_bytes
+from ..core.cigar import RecStat, cigar_from_seqs, rec_stat_from_cigar
 from ..core.device import DEFAULT_BATCH_COLUMNS, DEVICE_MIN_COLUMNS
 from ..core.fmt import fmt_f32
 from ..core.metrics import METRICS
 from ..core.natsort import rank_by_natural
 from ..core.strand import Strand
-from ..errors import QueryNameNotFound, WGAError
-from ..io.maf import map_reader, mapped_records
+from ..io.maf import (
+    BytesRows,
+    MappedRows,
+    forward_start,
+    map_reader,
+    mapped_records,
+    query_by_name,
+    query_index,
+)
 from .validate import stream_batch_stats
 
 STAT_COLUMNS = (
@@ -246,21 +253,14 @@ def _mapped_items(records, query_name):
     the same (t, q, negative, meta), and the same errors, as from
     MafRecords, with t and q the ranges of the rows in the mapping."""
     for slines in records:
-        qi = 1
-        if query_name is not None:
-            qi = next((i for i, s in enumerate(slines) if s[0] == query_name),
-                      None)
-            if qi is None:
-                raise QueryNameNotFound(query_name)
-        if qi >= len(slines):  # as MafRecord._query_sline
-            raise WGAError(f"MAF record has {len(slines)} s-line(s) but query "
-                           f"index {qi}")
+        qi = 1 if query_name is None else query_by_name(
+            (s[0] for s in slines), query_name)
         t_name, t_start, _, _, t_size, t = slines[0]
-        q_name, q_start, q_align, q_strand, q_size, q = slines[qi]
-        negative = q_strand == Strand.NEGATIVE
-        if negative:
-            q_start = q_size - q_start - q_align
-        yield t, q, negative, (t_name, t_size, q_name, q_size, t_start, q_start)
+        q_name, q_start, q_align, q_strand, q_size, q = slines[
+            query_index(len(slines), qi)]
+        yield t, q, q_strand == Strand.NEGATIVE, (
+            t_name, t_size, q_name, q_size, t_start,
+            forward_start(q_start, q_align, q_strand, q_size))
 
 
 def stat_maf(reader, writer, device, each=False, query_name=None,
@@ -302,13 +302,10 @@ def stat_maf(reader, writer, device, each=False, query_name=None,
 
     mm = map_reader(reader) if native.available() else None
     if mm is None:
-        base, stream = None, items()
+        rows, stream = BytesRows, items()
     else:
-        base = np.frombuffer(mm, np.uint8)
+        rows = MappedRows(mm)
         stream = _mapped_items(mapped_records(mm, reader.offset()), query_name)
-
-    def row(r):  # a row's bytes as uint8
-        return seq_bytes(r) if base is None else base[r.start : r.stop]
 
     # METRICS: the head's parse here, the stream's phases in
     # stream_seq_pair_stats (PairStat is built inside its emit phase)
@@ -325,7 +322,7 @@ def stat_maf(reader, writer, device, each=False, query_name=None,
         with METRICS.stage("emit"):
             pair_stats = [
                 PairStat(*m, rec_stat=rec_stat_from_cigar(
-                    cigar_from_seqs(row(t), row(q), neg)))
+                    cigar_from_seqs(rows.array(t), rows.array(q), neg)))
                 for t, q, neg, m in head
             ]
     else:
@@ -334,7 +331,7 @@ def stat_maf(reader, writer, device, each=False, query_name=None,
         pair_stats = [
             PairStat(*m, rec_stat=rs)
             for m, rs in stream_seq_pair_stats(
-                itertools.chain(head, stream), device, batch_columns, base)
+                itertools.chain(head, stream), device, batch_columns, rows)
         ]
     with METRICS.stage("emit"):
         final = final_stats(pair_stats, each)
