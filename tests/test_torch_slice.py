@@ -158,8 +158,9 @@ def test_row_helpers_match_jax(seed):
     for neg in (False, True):
         assert astuple(torch_batch.stats_row_to_cigar(row, neg)) == astuple(
             jax_batch.stats_row_to_cigar(row, neg))
-        assert astuple(torch_batch._host_pair_stat(t, q, neg)) == astuple(
-            jax_batch._host_pair_stat(t, q, neg))
+        host_row, = torch_batch._host_pair_row(t, q)
+        assert astuple(rec_stat_from_cigar(torch_batch.stats_row_to_cigar(
+            host_row, neg))) == astuple(jax_batch._host_pair_stat(t, q, neg))
 
 
 @pytest.mark.parametrize("batch_ops", [8, 1 << 20])

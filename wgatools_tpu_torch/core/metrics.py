@@ -30,7 +30,9 @@ Counters: `slots` and `padded_slots`, the op slots (kernel B) or columns
 padding;
 `native_scan_blocks` and `scan_fallback_blocks`, the MAF blocks of stat's
 mapped input that the native scanner tokenized and those whose lines went
-through parse_sline (io/maf.py mapped_records).
+through parse_sline (io/maf.py mapped_records); `stat_fold_rows` and
+`stat_record_rows`, the records stat's default mode folded as array rows
+and those that went through a per-record RecStat (tools/stat.py).
 
 When a torch.profiler session is on, each stage or phase also opens a
 `wga.<name>` user annotation (record_function), so that the program's spans

@@ -446,7 +446,7 @@ def mapped_records(mm, start):
 
 class BytesRows:
     """Rows held as bytes objects (the sequences of MafReader's records),
-    for stat's packer (ops.batch.stream_seq_pair_stats)."""
+    for stat's packer (ops.batch.stream_stat_rows)."""
 
     @staticmethod
     def addresses(rows, lens) -> np.ndarray:

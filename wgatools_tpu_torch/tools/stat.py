@@ -1,16 +1,22 @@
 """Alignment statistics (reference: src/tools/stat.rs).
 
 Per-record RecStats come from the host CIGAR engine (device=None) or from
-the device: MAF records stream through ops.batch.stream_seq_pair_stats
-(kernel A), PAF records through the segment sums of
-tools.validate.stream_batch_stats; only those device branches import torch.
-Aggregation merges records keyed by (ref_name, ref_size, query_name,
-query_size) exactly like the reference, then natural-sorts rows by
-ref_name; both engines share it, so they write the same bytes when their
-counters agree.
+the device: MAF records stream through ops.batch.stream_stat_rows (kernel
+A), a batch's counter rows at a time, PAF records through the segment sums
+of tools.validate.stream_batch_stats; only those device branches import
+torch.
+Aggregation (StatFold) merges records keyed by (ref_name, ref_size,
+query_name, query_size) exactly like the reference, as arrays: the device
+route folds each batch's counter rows (ops.batch.stream_stat_rows) and the
+per-record routes their RecStats (merge_final), then rows are
+natural-sorted by ref_name; every route shares it, so they write the same
+bytes when their counters agree.  Counters: `stat_fold_rows`, the records
+StatFold folded, and `stat_record_rows`, those that went through a
+per-record RecStat (final_stats).
 """
 
 import itertools
+import operator
 from dataclasses import dataclass
 
 import numpy as np
@@ -180,57 +186,143 @@ def split_final(pair_stats) -> list:
     return out
 
 
-def merge_final(pair_stats) -> list:
-    """Default mode: aggregate by pair key with min-start tracking
-    (reference: stat.rs:167-223)."""
-    grouped = {}
-    for ps in pair_stats:
-        key = (ps.ref_name, ps.ref_size, ps.query_name, ps.query_size)
-        grouped.setdefault(key, []).append(ps)
-    out = []
-    for (ref_name, ref_size, query_name, query_size), group in grouped.items():
-        stat = Statistic(
-            ref_name=ref_name,
-            ref_size=ref_size,
-            ref_start=ref_size,  # init to max, min-tracked below
-            query_name=query_name,
-            query_size=query_size,
-            query_start=query_size,
-        )
-        for ps in group:
-            rs = ps.rec_stat
-            stat.aligned_size += rs.aligned_size
-            stat.matched += rs.matched
-            stat.mismatched += rs.mismatched
-            stat.ins_event += rs.ins_event
-            stat.del_event += rs.del_event
-            stat.ins_size += rs.ins_size
-            stat.del_size += rs.del_size
-            stat.inv_ins_event += rs.inv_ins_event
-            stat.inv_ins_size += rs.inv_ins_size
-            stat.inv_del_event += rs.inv_del_event
-            stat.inv_del_size += rs.inv_del_size
-            stat.inv_event += rs.inv_event
-            stat.inv_size = float(
-                np.float32(stat.inv_size) + np.float32(rs.inv_size)
+# RecStat's integer fields, in the order of StatFold's columns
+SUM_FIELDS = (
+    "aligned_size",
+    "matched",
+    "mismatched",
+    "ins_event",
+    "del_event",
+    "ins_size",
+    "del_size",
+    "inv_ins_event",
+    "inv_ins_size",
+    "inv_del_event",
+    "inv_del_size",
+    "inv_event",
+)
+_PAIR_KEY = operator.itemgetter(0, 1, 2, 3)
+_NO_START = np.iinfo(np.int64).max
+
+
+def _starts(metas, col):
+    """metas[k][col] as an int64 array, or of Python ints past int64."""
+    starts = list(map(operator.itemgetter(col), metas))
+    try:
+        return np.array(starts, np.int64)
+    except OverflowError:
+        return np.array(starts, object)
+
+
+class StatFold:
+    """Default mode's aggregation (reference: stat.rs:167-223) over batches
+    of records as arrays.  Records group by (ref_name, ref_size,
+    query_name, query_size), the groups in order of first appearance; a
+    group sums the records' integer fields, keeps the least ref_start and
+    query_start (from its sizes down), and sums inv_size in float32 in
+    input order, one record after the other, as the reference's loop."""
+
+    def __init__(self):
+        self.keys = {}  # pair key -> group id
+        self.sums = np.zeros((0, len(SUM_FIELDS)), np.int64)
+        self.starts = np.zeros((0, 2), np.int64)
+        self.inv_size = np.zeros(0, np.float32)
+
+    def add(self, metas, sums, inv_size):
+        """Fold one batch: metas[k] is record k's (ref_name, ref_size,
+        query_name, query_size, ref_start, query_start), sums[k] its
+        integer fields in SUM_FIELDS' order (int64 [B, 12]), inv_size[k]
+        its float32 inv_size."""
+        B = len(metas)
+        if not B:
+            return
+        METRICS.count("stat_fold_rows", B)
+        keys = self.keys
+        pairs = list(map(_PAIR_KEY, metas))
+        ids = list(map(keys.get, pairs))
+        if None in ids:  # a group's first record
+            ids = [keys.setdefault(p, len(keys)) for p in pairs]
+        gid = np.array(ids, np.intp)
+        if len(keys) > len(self.inv_size):
+            self._grow(len(keys))
+        np.add.at(self.sums, gid, sums)
+        for col in (0, 1):
+            starts = _starts(metas, 4 + col)
+            if starts.dtype == object:
+                self.starts = self.starts.astype(object)
+            np.minimum.at(self.starts[:, col], gid, starts)
+        # a running float32 sum a group, in input order: a stable sort by
+        # group keeps each group's records in order; +0.0 changes no sum
+        inv = np.flatnonzero(inv_size != 0)
+        if not inv.size:
+            return
+        order = np.argsort(gid[inv], kind="stable")
+        g, v = gid[inv][order], inv_size[inv][order]
+        cuts = [0, *(np.flatnonzero(g[1:] != g[:-1]) + 1).tolist(), len(g)]
+        for lo, hi in zip(cuts, cuts[1:]):
+            k = g[lo]
+            carried = self.inv_size[k : k + 1]
+            self.inv_size[k] = np.add.accumulate(
+                np.concatenate((carried, v[lo:hi])))[-1]
+
+    def _grow(self, n):
+        n = max(n, 2 * len(self.inv_size))
+        more = n - len(self.inv_size)
+        self.sums = np.concatenate(
+            (self.sums, np.zeros((more, len(SUM_FIELDS)), np.int64)))
+        self.starts = np.concatenate(
+            (self.starts, np.full((more, 2), _NO_START, self.starts.dtype)))
+        self.inv_size = np.concatenate(
+            (self.inv_size, np.zeros(more, np.float32)))
+
+    def rows(self) -> list:
+        """One Statistic a group, in order of first appearance."""
+        out = []
+        n = len(self.keys)
+        for key, sums, (ref_start, query_start), inv_size in zip(
+                self.keys, self.sums[:n].tolist(), self.starts[:n].tolist(),
+                self.inv_size[:n].tolist()):
+            ref_name, ref_size, query_name, query_size = key
+            stat = Statistic(
+                ref_name=ref_name,
+                ref_size=ref_size,
+                ref_start=min(ref_start, ref_size),
+                query_name=query_name,
+                query_size=query_size,
+                query_start=min(query_start, query_size),
+                inv_size=inv_size,
+                **dict(zip(SUM_FIELDS, sums)),
             )
-            if ps.ref_start < stat.ref_start:
-                stat.ref_start = ps.ref_start
-            if ps.query_start < stat.query_start:
-                stat.query_start = ps.query_start
-        stat.unaligned_size = stat.ref_size - stat.aligned_size
-        stat.identity = float(
-            np.float32(stat.matched) / np.float32(stat.aligned_size)
-        )
-        stat.similarity = float(
-            np.float32(stat.matched + stat.mismatched)
-            / np.float32(stat.aligned_size)
-        )
-        out.append(stat)
-    return out
+            stat.unaligned_size = stat.ref_size - stat.aligned_size
+            stat.identity = float(
+                np.float32(stat.matched) / np.float32(stat.aligned_size)
+            )
+            stat.similarity = float(
+                np.float32(stat.matched + stat.mismatched)
+                / np.float32(stat.aligned_size)
+            )
+            out.append(stat)
+        return out
+
+
+def merge_final(pair_stats) -> list:
+    """Default mode: aggregate a list of PairStats by pair key with
+    min-start tracking (reference: stat.rs:167-223), by StatFold over
+    their RecStats."""
+    fields = operator.attrgetter(*SUM_FIELDS)
+    fold = StatFold()
+    fold.add(
+        [(ps.ref_name, ps.ref_size, ps.query_name, ps.query_size,
+          ps.ref_start, ps.query_start) for ps in pair_stats],
+        np.array([fields(ps.rec_stat) for ps in pair_stats],
+                 np.int64).reshape(-1, len(SUM_FIELDS)),
+        np.array([ps.rec_stat.inv_size for ps in pair_stats], np.float32),
+    )
+    return fold.rows()
 
 
 def final_stats(pair_stats, each: bool) -> list:
+    METRICS.count("stat_record_rows", len(pair_stats))
     return split_final(pair_stats) if each else merge_final(pair_stats)
 
 
@@ -308,7 +400,7 @@ def stat_maf(reader, writer, device, each=False, query_name=None,
         stream = _mapped_items(mapped_records(mm, reader.offset()), query_name)
 
     # METRICS: the head's parse here, the stream's phases in
-    # stream_seq_pair_stats (PairStat is built inside its emit phase)
+    # stream_stat_rows (the fold runs inside its emit phase)
     head = []
     head_cols = 0
     if not force_device:
@@ -320,12 +412,12 @@ def stat_maf(reader, writer, device, each=False, query_name=None,
                     break
     if not force_device and head_cols < DEVICE_MIN_COLUMNS:
         with METRICS.stage("emit"):
-            pair_stats = [
+            final = final_stats([
                 PairStat(*m, rec_stat=rec_stat_from_cigar(
                     cigar_from_seqs(rows.array(t), rows.array(q), neg)))
                 for t, q, neg, m in head
-            ]
-    else:
+            ], each)
+    elif each:
         from ..ops.batch import stream_seq_pair_stats
 
         pair_stats = [
@@ -333,8 +425,17 @@ def stat_maf(reader, writer, device, each=False, query_name=None,
             for m, rs in stream_seq_pair_stats(
                 itertools.chain(head, stream), device, batch_columns, rows)
         ]
-    with METRICS.stage("emit"):
-        final = final_stats(pair_stats, each)
+        with METRICS.stage("emit"):
+            final = final_stats(pair_stats, each)
+    else:
+        from ..ops.batch import rec_stat_columns, stream_stat_rows
+
+        fold = StatFold()
+        for metas, counters, negative in stream_stat_rows(
+                itertools.chain(head, stream), device, batch_columns, rows):
+            fold.add(metas, *rec_stat_columns(counters, negative))
+        with METRICS.stage("emit"):
+            final = fold.rows()
     with METRICS.stage("write"):
         write_final(final, writer)
 
