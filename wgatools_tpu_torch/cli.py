@@ -23,7 +23,9 @@ on any input (each rank writes its stripe of the targets).  The ranks join
 one process group (parallel.distributed: NCCL on the card, gloo on the
 CPU) from JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID;
 without them the one process runs the driver alone.  Process 0 writes the
-output and every rank destroys the group when the driver returns.
+output.  A rank keeps its group across the calls of main() in one process
+and destroys it at exit, or at once after a call that failed (which marks
+the failure on the group's store for the other ranks).
 Everywhere else (other subcommands, stdin and compressed inputs) the serial
 tool runs, as in the TPU package.  WGA_TPU_TRACE=<dir> writes a
 torch.profiler trace (core.metrics).
@@ -321,10 +323,10 @@ def main(argv=None):
     except BrokenPipeError:
         return 0
     finally:
-        if dist_requested():
+        if dist_requested() and not done:
             from .parallel.distributed import shutdown_distributed
 
-            shutdown_distributed(failed=not done)
+            shutdown_distributed(failed=True)
         _log_launches()
         if args.verbose >= 2:
             METRICS.report()

@@ -85,17 +85,21 @@ def extract_runs(t, q, lengths, caller=False):
 def _upload(arrays, device, uploader):
     if uploader is not None:
         return uploader.upload(*arrays)
-    return tuple(torch.tensor(a, device=device) for a in arrays)
+    with METRICS.gpu("h2d", torch.device(device)):
+        return tuple(torch.tensor(a, device=device) for a in arrays)
 
 
-def start_runs(t, q, lengths, device, caller=False, uploader=None):
+def start_runs(t, q, lengths, device, caller=False, uploader=None,
+               phase=None):
     """Phase 1 of batch_runs: upload the batch and launch its statistics
     kernel, without waiting for it.  Returns the state finish_runs takes;
     in between, the device works while the host packs the next batch.
 
     t, q: uint8 [B, L] numpy planes or tensors; lengths: int32 [B].
     uploader: an ops.pipeline.PinnedSlots for the host planes (pinned,
-    non_blocking), or None for a plain copy."""
+    non_blocking), or None for a plain copy.  phase: a METRICS.phases()
+    of the caller's, switched to `pack` for the category plane's packing
+    and to `device_runs` from the upload on."""
     if (
         isinstance(t, np.ndarray)
         and isinstance(q, np.ndarray)
@@ -106,7 +110,11 @@ def start_runs(t, q, lengths, device, caller=False, uploader=None):
         and t.shape[1] % 8 == 0
         and t.shape[1] < PACKED_MAX_COLUMNS
     ):
+        if phase is not None:
+            phase.to("pack")
         cw = pack_cat_nibbles(t, q)
+        if phase is not None:
+            phase.to("device_runs")
         METRICS.add_bytes("device_rle", cw.nbytes)
         cw_d, len_d = _upload((cw, np.asarray(lengths, dtype=np.int32)),
                               device, uploader)
@@ -129,19 +137,24 @@ def finish_runs(state):
     extraction), extract the runs and fetch them.  Returns numpy
     (row_ids, cats, lens), int32 each, in (row, column) order."""
     kind, data, lengths, stats, caller = state
-    per_row = stats[:, STAT_RUNS].cpu().numpy()
+    runs = stats[:, STAT_RUNS]
+    with METRICS.gpu("d2h", stats.device):
+        per_row = runs.cpu().numpy()
     total = int(per_row.sum(dtype=np.int64))
     if total == 0:
         z = np.zeros(0, dtype=np.int32)
         return z, z, z
     if kind == "cat":
-        packed = extract_runs_cat(data, lengths, caller).cpu().numpy()
+        packed = extract_runs_cat(data, lengths, caller)
+        with METRICS.gpu("d2h", stats.device):
+            packed = packed.cpu().numpy()
         _check_count(total, packed.shape[0])
         METRICS.add_bytes("device_rle", packed.nbytes)
         rows = np.repeat(np.arange(per_row.shape[0], dtype=np.int32), per_row)
         return rows, packed >> 28, packed & np.int32(0x0FFFFFFF)
-    row, cat, ln = (x.cpu().numpy() for x in extract_runs(*data, lengths,
-                                                           caller))
+    tables = extract_runs(*data, lengths, caller)
+    with METRICS.gpu("d2h", stats.device):
+        row, cat, ln = (x.cpu().numpy() for x in tables)
     _check_count(total, row.shape[0])
     METRICS.add_bytes("device_rle", 12 * row.shape[0])
     return row, cat, ln
@@ -155,13 +168,14 @@ def _check_count(total, extracted):
         )
 
 
-def batch_runs(t, q, lengths, device, caller=False):
+def batch_runs(t, q, lengths, device, caller=False, phase=None):
     """All runs of a padded batch on `device`, in (row, column) order.
 
     caller=True uses the caller category table (gap/gap -> W), the device
-    scan of the variant caller.  Returns numpy (row_ids, cats, lens),
-    int32 each."""
-    return finish_runs(start_runs(t, q, lengths, device, caller))
+    scan of the variant caller.  phase: as start_runs'.  Returns numpy
+    (row_ids, cats, lens), int32 each."""
+    return finish_runs(start_runs(t, q, lengths, device, caller,
+                                  phase=phase))
 
 
 def split_run_tables(n_rows, row_ids, cats, lens):

@@ -27,6 +27,7 @@ import pickle
 
 import numpy as np
 
+from ..core.metrics import METRICS
 from .distributed import (
     claim_work_units,
     process_index_count,
@@ -80,17 +81,23 @@ def allgather_bytes(payload: bytes):
     every payload, in rank order.  The ranks first meet on the store
     (wait_for_ranks), so that no rank waits inside a collective for
     another's work.  Without a group the one payload is returned; a group
-    of one rank runs both collectives, as _psum_row does."""
+    of one rank runs both collectives, as _psum_row does.  METRICS: the
+    meeting in stage `merge_wait`, the two collectives in `gather`, and
+    the bytes this rank received (padding included) in the counter
+    `allgather_bytes`."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
         return [payload]
-    wait_for_ranks()
-    group = tool_group()
-    lens = replicate_rows(group, np.array([len(payload)], np.int64))[:, 0]
-    row = np.zeros(max(int(lens.max()), 1), np.uint8)
-    row[: len(payload)] = np.frombuffer(payload, np.uint8)
-    rows = replicate_rows(group, row)
+    with METRICS.stage("merge_wait"):
+        wait_for_ranks()
+    with METRICS.stage("gather"):
+        group = tool_group()
+        lens = replicate_rows(group, np.array([len(payload)], np.int64))[:, 0]
+        row = np.zeros(max(int(lens.max()), 1), np.uint8)
+        row[: len(payload)] = np.frombuffer(payload, np.uint8)
+        rows = replicate_rows(group, row)
+    METRICS.count("allgather_bytes", rows.nbytes)
     return [rows[p, : int(n)].tobytes() for p, n in enumerate(lens)]
 
 
@@ -311,7 +318,10 @@ def distributed_call_maf(
     each record's run tables come from the rank's device as in the serial
     tool's device route (call_record: chunk groups of DEVICE_MIN_COLUMNS
     or more), as the TPU package's ranks take theirs from the TPU; None
-    runs the host engine."""
+    runs the host engine.  METRICS: the device route's phases of each
+    record (tools/caller.py; the claim and the reads in `parse`), the
+    pickling of this rank's rows in `gather`, allgather_bytes' stages, and
+    rank 0's sort and write in `merge`."""
     from ..io.maf import MafReader
     from ..io.vcf import VcfWriter
     from ..tools.caller import call_one_record, call_record
@@ -319,50 +329,61 @@ def distributed_call_maf(
 
     pid, nproc = process_index_count()
     mafindex = None
-    if os.path.exists(index_path_for(path)):
-        mafindex = load_index(index_path_for(path))
-    else:
-        log.warning("maf index not found, will not generate contig info")
-    offsets = _claimed_offsets(path, pid, nproc)
-
-    reader = MafReader.from_path(path)
-    local = []
-    for off in offsets:
-        reader.seek(off)
-        rec = reader.next_record()
-        if rec is None:
-            continue
-        body = io.BytesIO()
-        if device is not None:
-            call_record(rec, VcfWriter(body), if_snp, if_inv, svlen_cutoff,
-                        device, chunk_size, query_name, query_regex)
+    phase = METRICS.phases()
+    try:
+        phase.to("parse")
+        if os.path.exists(index_path_for(path)):
+            mafindex = load_index(index_path_for(path))
         else:
-            call_one_record(
-                rec, body, if_snp, if_inv, svlen_cutoff, chunk_size,
-                query_name, query_regex,
-            )
-        local.append((off, body.getvalue()))
+            log.warning("maf index not found, will not generate contig info")
+        offsets = _claimed_offsets(path, pid, nproc)
+
+        reader = MafReader.from_path(path)
+        local = []
+        for off in offsets:
+            phase.to("parse")
+            reader.seek(off)
+            rec = reader.next_record()
+            if rec is None:
+                continue
+            body = io.BytesIO()
+            if device is not None:
+                call_record(rec, VcfWriter(body), if_snp, if_inv,
+                            svlen_cutoff, device, chunk_size, query_name,
+                            query_regex, phase)
+            else:
+                phase.to("emit")
+                call_one_record(
+                    rec, body, if_snp, if_inv, svlen_cutoff, chunk_size,
+                    query_name, query_regex,
+                )
+            local.append((off, body.getvalue()))
+        phase.to("gather")
+        blob = pickle.dumps(local, protocol=4)
+    finally:
+        phase.stop()
 
     with stdout_parked():
-        payloads = allgather_bytes(pickle.dumps(local, protocol=4))
+        payloads = allgather_bytes(blob)
     if pid != 0:
         return
-    merged = []
-    for blob in payloads:
-        merged.extend(pickle.loads(blob))
-    merged.sort(key=lambda t: t[0])
-    vcf = VcfWriter(writer, sample or "sample")
-    contigs = None
-    if mafindex:
-        contigs = [
-            (name, item["size"])
-            for name, item in mafindex.items()
-            if item["isref"]
-        ]
-    vcf.write_header(contigs)
-    for _, body in merged:
-        writer.write(body)
-    writer.flush()
+    with METRICS.stage("merge"):
+        merged = []
+        for blob in payloads:
+            merged.extend(pickle.loads(blob))
+        merged.sort(key=lambda t: t[0])
+        vcf = VcfWriter(writer, sample or "sample")
+        contigs = None
+        if mafindex:
+            contigs = [
+                (name, item["size"])
+                for name, item in mafindex.items()
+                if item["isref"]
+            ]
+        vcf.write_header(contigs)
+        for _, body in merged:
+            writer.write(body)
+        writer.flush()
 
 
 def _merge_chunks_to(writer, payloads, pid):

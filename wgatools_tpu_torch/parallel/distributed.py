@@ -16,10 +16,17 @@ different times.  The merges therefore first meet on the group's store
 the collectives, whose timeout is short.  A rank that fails marks the
 store (shutdown_distributed), and the ranks waiting for it stop.
 
+The group that maybe_initialize_distributed starts is kept for the life of
+the process: later calls of the command line in the same process (ranks
+kept warm between jobs) reuse it, and it is destroyed at exit, or at once
+after a call that failed.  The METRICS counter `dist_group_inits` counts
+the groups this process started.
+
 This module imports torch only inside its functions: the tool drivers
 (dist_tools) import it, and the command line loads them on every run.
 """
 
+import atexit
 import datetime
 import logging
 import os
@@ -27,6 +34,7 @@ import sys
 import time
 from contextlib import contextmanager
 
+from ..core.metrics import METRICS
 from ..errors import WGAError
 
 log = logging.getLogger(__name__)
@@ -37,6 +45,8 @@ INIT_TIMEOUT_S = 120
 COLLECTIVE_TIMEOUT_S = 600
 # how long a rank waits at a merge for the slowest rank's own work
 MERGE_WAIT_S = 24 * 3600
+# the longest pause between two looks at the store while a rank waits
+POLL_MAX_S = 0.001
 # the store key a failing rank sets
 FAILED_KEY = "wgatools/failed"
 
@@ -79,14 +89,18 @@ def init_group(backend, store, rank, size, device, timeout_s=INIT_TIMEOUT_S):
         timeout=datetime.timedelta(seconds=timeout_s), **kwargs,
     )
     _STORE, _MERGES = store, 0
+    METRICS.count("dist_group_inits", 1)
 
 
 def maybe_initialize_distributed():
     """Join the ranks' process group from the standard env vars when they
     are all present; returns False, starting nothing, when any is absent.
+    A group this process started before and still holds is kept: True at
+    once.
 
     The backend follows the port's device: NCCL on the card, where rank
-    `pid` takes card pid % cards, and gloo on the CPU."""
+    `pid` takes card pid % cards, and gloo on the CPU.  The group is
+    destroyed at the process's exit (shutdown_distributed)."""
     import torch
     import torch.distributed as dist
 
@@ -97,6 +111,8 @@ def maybe_initialize_distributed():
     pid = os.environ.get("JAX_PROCESS_ID")
     if not (addr and nproc and pid):
         return False
+    if _STORE is not None and dist.is_initialized():
+        return True
     rank, size = int(pid), int(nproc)
     host, port = addr.rsplit(":", 1)
     if torch_device().type == "cuda":
@@ -112,6 +128,7 @@ def maybe_initialize_distributed():
             timeout=datetime.timedelta(seconds=INIT_TIMEOUT_S),
         )
         init_group(backend, store, rank, size, device, COLLECTIVE_TIMEOUT_S)
+    atexit.register(shutdown_distributed)
     log.info("torch.distributed initialized: process %s/%s via %s, backend %s",
              pid, nproc, addr, backend)
     return True
@@ -132,7 +149,8 @@ def wait_for_ranks():
     """Return once every rank of the group has called this as often as
     this rank has: the n-th call on one rank meets the n-th on the others,
     on the group's store, with no collective and no time limit of the
-    group's own.  Raises WGAError when another rank failed first, or after
+    group's own.  Raises WGAError when another rank failed first, when the
+    store has gone (rank 0, its host, ended its group), or after
     MERGE_WAIT_S.  Nothing to wait for without a group."""
     global _MERGES
     import torch.distributed as dist
@@ -140,12 +158,21 @@ def wait_for_ranks():
     if _STORE is None or not dist.is_initialized():
         return
     _MERGES += 1
-    key = f"wgatools/merge{_MERGES}"
-    if _STORE.add(key, 1) == dist.get_world_size():
+    try:
+        _meet(f"wgatools/merge{_MERGES}", dist.get_world_size())
+    except dist.DistError as e:
+        raise WGAError(f"merge {_MERGES}: the group's store has gone "
+                       f"({str(e).splitlines()[0]})") from e
+
+
+def _meet(key, size):
+    if _STORE.add(key, 1) == size:
         _STORE.set(key + "/all", "1")
     t0 = time.monotonic()
-    pause = 0.001
-    # poll: a store wait that times out logs a warning each time
+    pause = POLL_MAX_S / 8
+    # poll: a store wait that times out logs a warning each time; the
+    # pause stays short, so that the last rank's arrival is seen within
+    # POLL_MAX_S
     while not _STORE.check([key + "/all"]):
         if _STORE.check([FAILED_KEY]):
             raise WGAError(f"rank {_STORE.get(FAILED_KEY).decode()} failed "
@@ -154,7 +181,7 @@ def wait_for_ranks():
             raise WGAError(f"merge {_MERGES}: not every rank arrived within "
                            f"{MERGE_WAIT_S:g} s")
         time.sleep(pause)
-        pause = min(2 * pause, 0.05)
+        pause = min(2 * pause, POLL_MAX_S)
 
 
 def shutdown_distributed(failed=False):

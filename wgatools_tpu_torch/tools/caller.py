@@ -18,6 +18,16 @@ tables, the chunk plan and the VCF writer are shared with the host
 engine, so both write the same bytes when the run tables agree.  Only that
 device route imports torch (batch_runs below), so `call -f paf` and the
 host engine never load it.
+
+The device route's METRICS phases, disjoint within a call: `parse` (the
+records, and each chunk's rows), `plan` (plan_chunks), `pack` (a group's
+padded planes and its category plane), `device_runs` (upload, launches,
+fetch of a batch's run tables), `emit` (the variant rows of each chunk,
+and the host engine's run tables below DEVICE_MIN_COLUMNS), `write`.  Its
+counters: `call_device_columns` and `call_host_columns` (columns whose
+run tables came from the device, and from the host engine),
+`call_variant_rows` (VCF body rows), and `slots` / `padded_slots` of the
+grouped batches.
 """
 
 import logging
@@ -27,6 +37,7 @@ import numpy as np
 from .. import native
 from ..core import cigar as C
 from ..core.device import DEVICE_MIN_COLUMNS
+from ..core.metrics import METRICS
 from ..errors import CigarOpInvalid
 from ..io.fasta import FastaReader
 from ..io.maf import MafRecord, MafSLine
@@ -526,25 +537,35 @@ def call_var_maf(
             for name, item in mafindex.items()
             if item["isref"]
         ]
-    vcf.write_header(contigs)
-
-    for record in mafreader.records():
-        if device is not None:
+    if device is None:
+        vcf.write_header(contigs)
+        for record in mafreader.records():
+            call_one_record(
+                record,
+                writer,
+                if_snp,
+                if_inv,
+                svlen_cutoff,
+                chunk_size,
+                query_name,
+                query_regex,
+                vcf=vcf,
+            )
+        writer.flush()
+        return
+    phase = METRICS.phases()
+    try:
+        phase.to("write")
+        vcf.write_header(contigs)
+        phase.to("parse")
+        for record in mafreader.records():
             call_record(record, vcf, if_snp, if_inv, svlen_cutoff, device,
-                        chunk_size, query_name, query_regex)
-            continue
-        call_one_record(
-            record,
-            writer,
-            if_snp,
-            if_inv,
-            svlen_cutoff,
-            chunk_size,
-            query_name,
-            query_regex,
-            vcf=vcf,
-        )
-    writer.flush()
+                        chunk_size, query_name, query_regex, phase)
+            phase.to("parse")
+        phase.to("write")
+        writer.flush()
+    finally:
+        phase.stop()
 
 
 def call_one_record(
@@ -626,9 +647,12 @@ def call_record_part(
 
 
 def _write_chunk_rows(vcf, chunk_rec, if_snp, if_inv, svlen_cutoff, runs,
-                      chunk_count, chunk_start, safe_end, total_size):
+                      chunk_count, chunk_start, safe_end, total_size,
+                      phase=None):
     """One chunk's VCF rows, joined and written once (per-row
-    BufferedWriter writes were ~10 s of a 100 Mbp profile)."""
+    BufferedWriter writes were ~10 s of a 100 Mbp profile).  phase: the
+    device route's METRICS.phases(), in `emit` on entry, switched to
+    `write` for the join and the write."""
     # per-chunk progress on large records (caller.rs:131-138)
     log.info(
         "Processed chunk %d: start=%d, end=%d, size=%d, progress=%.2f%%",
@@ -645,8 +669,13 @@ def _write_chunk_rows(vcf, chunk_rec, if_snp, if_inv, svlen_cutoff, runs,
             chunk_rec, if_snp, svlen_cutoff, if_inv, runs=runs
         )
     ]
+    if phase is not None:
+        phase.to("write")
     if buf:
-        vcf.write_raw(b"".join(buf))
+        blob = b"".join(buf)
+        if phase is not None:
+            METRICS.count("call_variant_rows", blob.count(b"\n"))
+        vcf.write_raw(blob)
 
 
 def plan_chunks(t_arr, q_arr, chunk_size, svlen_cutoff):
@@ -768,27 +797,33 @@ def batch_runs(*args, **kwargs):
     return batch_runs(*args, **kwargs)
 
 
-def caller_runs(t_arr, q_arr, device):
+def caller_runs(t_arr, q_arr, device, phase):
     """Caller-mode run table (cats uint8, lens int64) of one chunk: a
     [1, n] device batch from DEVICE_MIN_COLUMNS columns on, the host
-    engine below."""
+    engine below.  phase (METRICS.phases()) is in `emit` on entry and on
+    return."""
     n = min(t_arr.shape[0], q_arr.shape[0])  # the host engine's zip rule
     if n < DEVICE_MIN_COLUMNS:
+        METRICS.count("call_host_columns", n)
         return C.caller_runs(t_arr, q_arr)
+    METRICS.count("call_device_columns", n)
+    phase.to("device_runs")
     _, cats, lens = batch_runs(
         np.ascontiguousarray(t_arr[None, :n]),
         np.ascontiguousarray(q_arr[None, :n]),
-        np.array([n], dtype=np.int32), device, caller=True,
+        np.array([n], dtype=np.int32), device, caller=True, phase=phase,
     )
+    phase.to("emit")
     return cats.astype(np.uint8), lens.astype(np.int64)
 
 
 def call_record(record, vcf, if_snp, if_inv, svlen_cutoff, device,
-                chunk_size=None, query_name=None, query_regex=None):
+                chunk_size, query_name, query_regex, phase):
     """Variant rows of one record, chunk by chunk along its SV-safe chunk
     plan, written to `vcf`: call_record_part's serial case with the run
     tables from `device`.  Chunks group into device batches of up to
-    GROUP_BUDGET columns."""
+    GROUP_BUDGET columns.  phase: the caller's METRICS.phases(), switched
+    through this record's phases (module docstring) and left running."""
     if len(record.slines) == 1:
         return
     if query_name is not None:
@@ -803,7 +838,9 @@ def call_record(record, vcf, if_snp, if_inv, svlen_cutoff, device,
     else:
         record.query_idx = 1
 
+    phase.to("parse")
     view = _ChunkView(record)
+    phase.to("plan")
     plan = plan_chunks(view.t_arr, view.q_arr, chunk_size or DEFAULT_CHUNK_SIZE,
                        svlen_cutoff)
     total_size = view.t_arr.shape[0]
@@ -812,27 +849,35 @@ def call_record(record, vcf, if_snp, if_inv, svlen_cutoff, device,
     def emit_group(group):
         nonlocal chunk_count
         runs_list = [None] * len(group)
-        if len(group) > 1 and sum(e - s for s, e, _ in group) >= DEVICE_MIN_COLUMNS:
+        cols = sum(e - s for s, e, _ in group)
+        if len(group) > 1 and cols >= DEVICE_MIN_COLUMNS:
             from ..ops.classify import pack_pairs
             from ..ops.rle_device import split_run_tables
 
+            phase.to("pack")
             t, q, lens = pack_pairs(
                 [(r.target_seq, r.query_seq) for _, _, r in group]
             )
-            runs_list = split_run_tables(
-                len(group), *batch_runs(t, q, lens, device, caller=True)
-            )
+            METRICS.count("slots", t.size)
+            METRICS.count("padded_slots", t.size - int(lens.sum()))
+            METRICS.count("call_device_columns", int(lens.sum()))
+            tables = batch_runs(t, q, lens, device, caller=True, phase=phase)
+            runs_list = split_run_tables(len(group), *tables)
+        phase.to("emit")
         for (chunk_start, safe_end, chunk_rec), runs in zip(group, runs_list):
             chunk_count += 1
             if runs is None:
                 runs = caller_runs(C.seq_bytes(chunk_rec.target_seq),
-                                   C.seq_bytes(chunk_rec.query_seq), device)
+                                   C.seq_bytes(chunk_rec.query_seq), device,
+                                   phase)
             _write_chunk_rows(vcf, chunk_rec, if_snp, if_inv, svlen_cutoff,
                               runs, chunk_count, chunk_start, safe_end,
-                              total_size)
+                              total_size, phase)
+            phase.to("emit")
 
     group, group_cols = [], 0
     for chunk_start, safe_end in plan:
+        phase.to("parse")
         group.append((chunk_start, safe_end, view.chunk(chunk_start, safe_end)))
         group_cols += safe_end - chunk_start
         if group_cols >= GROUP_BUDGET:
